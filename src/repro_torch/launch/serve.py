@@ -1,0 +1,196 @@
+"""Serving driver — the end-to-end application: serve batched
+nearest-neighbor requests over a live Coconut index while the stream keeps
+ingesting, with verification on the device.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --scheme BTP \
+        --batches 40 --batch-size 500 --query-batch 32
+
+The device arenas live on ``--device`` (``cuda`` unless asked otherwise;
+without a card that default raises). ``--gateway``, ``--mode lm`` and
+``--shard mesh`` are refused at parse time until their parts are ported.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from ..core import (
+    StreamConfig, StreamingIndex, SummarizationConfig, recall_at_k,
+    render_heatmap,
+)
+from ..core.verify_engine import get_engine
+from ..data.synthetic import seismic
+
+
+def serve_coconut(args) -> dict:
+    """Serve batched kNN traffic over a live stream.
+
+    ``--tier exact`` answers through the batched exact engine
+    (``window_knn_batch``); ``--tier approx`` through the batched
+    approximate tier (``window_knn_approx_batch``): one vectorized key seek
+    plus coalesced sequential block reads per (run, batch). ``--n-blocks``
+    is the approximate tier's recall knob. Approximate recall@k vs the
+    exact oracle is measured on every served batch.
+
+    ``--ingest async`` moves flush/merge work onto the background ingest
+    pipeline: queries serve from pinned epoch snapshots while compactions
+    publish concurrently, and the per-batch log line reports the freshness
+    lag.
+
+    Verification runs on the device engine. At startup ``prewarm`` walks
+    the pass ladder the configured stream can produce and builds the
+    kernel library, so the first served batch pays no build; every log
+    line reports the engine's cumulative ``traces``/``hits``.
+    ``--no-prewarm`` skips it.
+
+    Returns what was served: per-batch latency, recall (approx tier) and
+    ``served`` entries ``(batch, t0, t1, queries, ids)``, the engine stats,
+    and the index itself for callers that check the answers."""
+    tier = args.tier
+    device = getattr(args, "device", "cuda")
+    scfg = SummarizationConfig(series_len=args.series_len, n_segments=16,
+                               card_bits=8)
+    idx = StreamingIndex(StreamConfig(
+        scheme=args.scheme, summarization=scfg, buffer_entries=4096,
+        growth_factor=4, block_size=512, ingest=args.ingest,
+        # getattr: programmatic callers (tests) build partial Namespaces
+        screen_dtype=getattr(args, "screen_dtype", None), device=device))
+    idx.raw.disk.keep_log = True
+    engine = get_engine(device)
+    if args.prewarm:
+        # the non-materialized stream verifies against the RawStore arena,
+        # whose capacity walks the bucket ladder as ingest grows it — walk
+        # every table size the stream will reach
+        sizes = sorted({args.batch_size * (b + 1) for b in range(args.batches)})
+        t0 = time.perf_counter()
+        n = engine.prewarm(args.series_len, args.query_batch, args.k, sizes,
+                           dtype=getattr(args, "screen_dtype", None))
+        print(f"[serve] prewarmed {n} pass signatures "
+              f"({time.perf_counter()-t0:.1f}s) for stores up to {sizes[-1]} "
+              f"entries on {engine.device}", flush=True)
+    lat, recalls, lags, served = [], [], [], []
+    for b in range(args.batches):
+        x = seismic(args.batch_size, args.series_len, seed=b)
+        idx.ingest(x, np.full(args.batch_size, b, np.int64))
+        if (b + 1) % 5 == 0:  # serve a query batch every 5 ingest batches
+            qs = seismic(args.query_batch, args.series_len, seed=10_000 + b)
+            t0b, t1b = max(0, b - args.window), b
+            t0 = time.perf_counter()
+            if tier == "approx":
+                _, got_ids, _ = idx.window_knn_approx_batch(
+                    qs, t0b, t1b, k=args.k, n_blocks=args.n_blocks)
+            else:
+                _, got_ids, _ = idx.window_knn_batch(qs, t0b, t1b, k=args.k)
+            dt = (time.perf_counter() - t0) / args.query_batch
+            lat.append(dt)
+            served.append((b, t0b, t1b, qs, got_ids))
+            es = engine.stats
+            lag = idx.ingest_lag()
+            lags.append(lag["lag_entries"])
+            bhist = ",".join(f"{mb}:{c}" for mb, c in
+                             sorted(es["batch_hist"].items()))
+            line = (f"[serve] batch {b+1}: {args.query_batch} queries "
+                    f"({tier}), {dt*1e3:.2f} ms/query, "
+                    f"partitions={idx.n_partitions}, "
+                    f"calls={es['calls']}, fallbacks={es['fallbacks']}, "
+                    f"traces={es['traces']}, hits={es['hits']}, "
+                    f"batch_hist={bhist or '-'}, "
+                    f"epoch={lag['epoch']}, lag={lag['lag_entries']}, "
+                    f"pending_merge={lag['runs_pending_merge']}, "
+                    f"snap_age={lag['snapshot_age_s']:.2f}s")
+            if tier == "approx":
+                # score recall without letting the oracle's reads pollute
+                # the approx tier's modeled-I/O figures (suspended for THIS
+                # thread only, so a background ingest worker keeps
+                # accounting into the shared stats)
+                with idx.raw.disk.unaccounted():
+                    _, exact_ids, _ = idx.window_knn_batch(qs, t0b, t1b,
+                                                           k=args.k)
+                recalls.append(recall_at_k(got_ids, exact_ids))
+                line += f", recall@{args.k}={recalls[-1]:.3f}"
+            print(line, flush=True)
+    if args.ingest == "async":
+        t0 = time.perf_counter()
+        idx.drain(timeout=300)
+        idx.close()
+        print(f"[serve] drained ingest backlog in {time.perf_counter()-t0:.2f}s "
+              f"(max observed lag {max(lags or [0])} entries)")
+    lat_ms = np.array(lat) * 1e3
+    if lat_ms.size:
+        print(f"[serve] latency ms/query p50={np.percentile(lat_ms, 50):.3f} "
+              f"p95={np.percentile(lat_ms, 95):.3f} max={lat_ms.max():.3f}")
+    if recalls:
+        print(f"[serve] approx tier n_blocks={args.n_blocks}: "
+              f"mean recall@{args.k}={np.mean(recalls):.3f} "
+              f"min={np.min(recalls):.3f}")
+    es = engine.stats
+    print(f"[serve] engine on {engine.device}: calls={es['calls']} "
+          f"fallbacks={es['fallbacks']} screened={es['screened']} "
+          f"arena_bytes={es['arena_bytes']} arena_dtype={es['arena_dtype']}")
+    print(f"[serve] ingested {args.batches*args.batch_size} series, "
+          f"{idx.n_partitions} partitions, "
+          f"index={idx.index_bytes()>>20} MiB, "
+          f"modeled io={idx.raw.disk.modeled_seconds():.2f}s")
+    print("[serve] access heat map:", render_heatmap(idx.raw.disk.heatmap()))
+    return {"latency_ms": lat_ms, "recalls": recalls, "served": served,
+            "engine": dict(es), "index": idx}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", default="coconut", choices=["coconut", "lm"])
+    ap.add_argument("--scheme", default="BTP", choices=["PP", "TP", "BTP"])
+    ap.add_argument("--batches", type=int, default=40)
+    ap.add_argument("--batch-size", type=int, default=500)
+    ap.add_argument("--series-len", type=int, default=128)
+    ap.add_argument("--query-batch", type=int, default=16)
+    ap.add_argument("--window", type=int, default=5)
+    ap.add_argument("--k", type=int, default=5)
+    ap.add_argument("--tier", default="exact", choices=["exact", "approx"],
+                    help="serving tier: exact engine or the approximate "
+                         "(key-seek + sequential-block-read) tier")
+    ap.add_argument("--n-blocks", type=int, default=2,
+                    help="approx tier: adjacent blocks read per (query, run) "
+                         "— the recall vs I/O knob")
+    ap.add_argument("--shard", default="none", choices=["none", "mesh"],
+                    help="exact tier execution: single-device (mesh is not "
+                         "ported yet)")
+    ap.add_argument("--ingest", default="sync", choices=["sync", "async"],
+                    help="sync: flush/merge inline on the serving thread; "
+                         "async: background ingest pipeline (queries never "
+                         "block on compaction, freshness lag is logged)")
+    ap.add_argument("--screen-dtype", default=None,
+                    choices=["f32", "bf16", "int8", "auto"],
+                    help="device-arena storage dtype for the screen tier: "
+                         "bf16 halves / int8 quarters the arena; answers "
+                         "stay exact via the widened certificate + f64 "
+                         "re-rank (default: the REPRO_SCREEN_DTYPE env var, "
+                         "f32)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the device arenas live and the screen runs: "
+                         "cuda (default; raises without a card) or cpu")
+    ap.add_argument("--gateway", action="store_true",
+                    help="dynamic-batching gateway (not ported yet)")
+    ap.add_argument("--no-prewarm", dest="prewarm", action="store_false",
+                    help="skip walking the pass ladder and building the "
+                         "kernels at startup (the first batch pays the build)")
+    return ap
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    # refuse what is not ported yet at parse time, not mid-batch
+    if args.mode != "coconut":
+        ap.error("--mode lm is not ported yet (ROADMAP Queue 1 item 12)")
+    if args.gateway:
+        ap.error("--gateway is not ported yet (ROADMAP Queue 1 item 8)")
+    if args.shard == "mesh":
+        ap.error("--shard mesh is not ported yet (ROADMAP Queue 1 item 9)")
+    serve_coconut(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,92 @@
+"""The port stands alone: no ``repro_torch`` module imports JAX or the JAX
+package, and its entry points run on the card unless the caller asks for
+the CPU."""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+
+PKG = Path(repro_torch.__file__).resolve().parent
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages([str(PKG)],
+                                                        prefix="repro_torch."))
+
+
+def test_importing_every_module_loads_neither_jax_nor_repro():
+    names = _modules()
+    assert "repro_torch.core.verify_engine" in names
+    assert "repro_torch.launch.serve" in names
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == ""
+
+
+def test_no_source_imports_jax_or_repro():
+    found = []
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "repro", "ml_dtypes"):
+                    found.append(f"{path.relative_to(PKG)}:{node.lineno} {name}")
+    assert found == []
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default resolves")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
+    from repro_torch.core import (
+        CLSM, CLSMConfig, CTree, CTreeConfig, RawStore, StreamConfig,
+        StreamingIndex, VerifyEngine, get_engine)
+    from repro_torch.launch import serve
+
+    for make in (VerifyEngine, get_engine, lambda: RawStore(16),
+                 lambda: CTree(CTreeConfig()), lambda: CLSM(CLSMConfig()),
+                 lambda: StreamingIndex(StreamConfig())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert StreamConfig().device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--batches", "1"])
+    # asked for explicitly, the CPU runs the plain versions
+    assert VerifyEngine(device="cpu").device.type == "cpu"
+    assert StreamingIndex(StreamConfig(device="cpu")).raw.device.type == "cpu"
+
+
+def test_only_cpu_tensors_run_the_plain_versions(no_card):
+    """Dispatch is by tensor device: a CPU tensor runs the plain version, and
+    no other device does (there is no silent fallback path)."""
+    from repro_torch.kernels import ops
+
+    q = torch.zeros((2, 8))
+    x = torch.zeros((4, 8), device="meta")
+    with pytest.raises(ValueError):
+        ops.screen_select(q.to("meta"), x, torch.zeros(4, device="meta"), 2)
