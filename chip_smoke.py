@@ -15,6 +15,9 @@ Phases, each reported on lines of its own:
             kernels' maximum. Ids must be equal except between candidates
             whose plain distances lie within the engine's certificate bound
             of each other, and every |delta d2| must lie within that bound.
+            The same for topk_ed (batches of 16 and 64, a 4,096-row pass and
+            the whole table, slates of 13 and the maximum), whose bound also
+            covers the norms it sums itself.
 4. serve:   the port's serving loop (``repro_torch.launch.serve``) over
             1,024,000 seismic series of length 256 (a 1 GiB f32 arena on the
             card), BTP, 16-query batches after every fifth of 200 ingest
@@ -30,10 +33,27 @@ Phases, each reported on lines of its own:
             answer must equal an f64 brute force over the window, computed
             on the card. Then exact int8 serving of a stream of repeating
             events, where the int8 certificate holds, checked the same way.
-5. timing:  each kernel at the shape the serving loop launched it at most
+   Phases 5-7 run right after the exact f32 serve phase, on its index.
+5. summarize: paa -> sax_pack over the exact f32 phase's 1,024,000 series
+            and a query batch: PAA values, symbols and keys bitwise those of
+            the plain versions; symbols and keys equal the host
+            summarization's except on rows whose PAA lies within the f32
+            error of a segment mean of a breakpoint (counted, with a limit).
+6. kernel backend: 16 of the exact f32 phase's served (query batch, window)
+            pairs asked again of its index with ``backend="kernel"``: every
+            answer equals the ids served and the f64 brute force; the
+            approximate tier (64 blocks) under ``"kernel"`` and ``"device"``
+            returns the same ids for every query whose keys agree. Each
+            call launches topk_ed (and paa and sax_pack in the approximate
+            tier), counts set to 0 just before it and read just after.
+7. ADS+:    an ADSIndex (the reference's defaults, full mode, 8 segments)
+            over the same series, exact and approximate 16-query batches
+            under ``"device"`` and ``"kernel"``: exact answers equal the f64
+            brute force, approximate answers agree across the backends.
+8. timing:  each kernel at the shape the main path launched it at most
             often: its device time, its plain version, one PyTorch library
-            yardstick (gather + addmm + topk, used nowhere in the port) and
-            the least time the card could take (its bound).
+            yardstick (used nowhere in the port) and the least time the card
+            could take (its bound).
 
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -47,6 +67,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -94,12 +115,38 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 EPS32 = 2.0 ** -23
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/screen_select.cu"
+SOURCES = {
+    "screen_select": "src/repro_torch/kernels/csrc/screen_select.cu",
+    "screen_select_quant": "src/repro_torch/kernels/csrc/screen_select.cu",
+    "topk_ed": "src/repro_torch/kernels/csrc/screen_select.cu",
+    "paa": "src/repro_torch/kernels/csrc/summarize.cu",
+    "sax_pack": "src/repro_torch/kernels/csrc/summarize.cu",
+}
 REPLACES = {
     "screen_select": "src/repro/kernels/ed_scan_kernel.py:227",
     "screen_select_quant": "src/repro/kernels/ed_scan_kernel.py:279",
+    "topk_ed": "src/repro/kernels/ed_scan_kernel.py:184",
+    "paa": "src/repro/kernels/paa_kernel.py:28",
+    "sax_pack": "src/repro/kernels/sax_pack_kernel.py:43",
 }
-DEVICE_KERNELS = ("screen_partial_kernel", "slate_merge_kernel")
+# the device kernels each wrapper launches, as the profiler names them
+DEVICE_KERNELS = {"screen_select": ("screen_partial_kernel", "slate_merge_kernel"),
+                  "paa": ("paa_kernel",), "sax_pack": ("sax_pack_kernel",)}
+DEVICE_KERNELS["screen_select_quant"] = DEVICE_KERNELS["topk_ed"] = \
+    DEVICE_KERNELS["screen_select"]
+TOPK_PASS_ROWS = 4096  # one kernel-backend pass
+# kernel backend: served (query batch, window) pairs asked again
+KERNEL_BACKEND_PAIRS = 16
+# rows whose PAA lies nearer a breakpoint than the f32 error of a segment
+# mean may take either symbol: at most this share of the rows (PERF.md)
+NEAR_BREAKPOINT_LIMIT = 1e-3
+# ADS+: the reference's ADSConfig defaults (leaves of 1,024, full mode) over
+# 8-segment summaries (16 segments fan the iSAX root out to 2^16 children of
+# ~16 seismic series, so no pass would reach the engine's device floor)
+ADS_SEGMENTS = 8
+ADS_BUILD_S = 90.0  # host build budget; inserts go in chunks of 2^18 series
+ADS_CHUNK = 1 << 18
+ADS_BATCHES = 4
 T_START = time.perf_counter()
 
 
@@ -232,10 +279,117 @@ class Case:
                   + (4 * self.n if self.rows is not None else 0)  # row list
                   + (4 * self.n if self.scale is not None else 0)  # scales
                   + 4 * m * d + 8 * m * self.s + 4 * m)  # q, slate, |q|^2
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = 2.0 * m * self.n * d / FP32_FLOP_PER_S
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                           else "operations")
+        return _bound(nbytes, 2.0 * m * self.n * d)
+
+
+class TopkCase:
+    """One topk_ed call: queries against candidate rows taken in order, the
+    norms summed by the kernel itself."""
+
+    name = "topk_ed"
+
+    def __init__(self, torch, ops, ref, q, x, s):
+        self.torch, self.ops, self.ref = torch, ops, ref
+        self.q, self.x, self.s, self.n = q, x, s, x.shape[0]
+
+    def kernel(self):
+        return self.ops.topk_ed(self.q, self.x, self.s)
+
+    def plain(self, k=None):
+        return self.ref.topk_ed_ref(self.q, self.x, self.s if k is None else k)
+
+    def library(self):
+        """The yardstick: norms, one addmm, one topk."""
+        torch = self.torch
+        xn2 = (self.x * self.x).sum(1)
+        d2 = torch.addmm(xn2[None, :], self.q, self.x.T, alpha=-2.0)
+        return torch.topk(d2, self.s, dim=1, largest=False)
+
+    def check(self):
+        """Hold the kernel against the plain version. Both sum |q|^2, |x|^2
+        and <q, x> in f32, in other orders: each d2 lies within
+        4 d u (|q| + |x|max)^2 of the exact value."""
+        torch = self.torch
+        kv, ki = self.kernel()
+        pfull, pord = self.plain(self.n)
+        torch.cuda.synchronize()
+        pv, pi = pfull[:, : self.s], pord[:, : self.s]
+        d = self.q.shape[1]
+        qn = (self.q.double() ** 2).sum(1).sqrt()
+        xmax = float((self.x.double() ** 2).sum(1).max().sqrt())
+        tol = (2.0 * 4.0 * d * EPS32 * (qn + xmax) ** 2)[:, None]
+        if ki.shape != pi.shape or bool((ki < 0).any()):
+            fail(f"topk_ed: slate shape {tuple(ki.shape)} or empty slots")
+        err = (kv.double() - pv.double()).abs()
+        d2 = torch.empty_like(pfull).scatter_(1, pord.long(), pfull)
+        picked = torch.gather(d2, 1, ki.long()).double()
+        differ = ki != pi
+        if bool((err > tol).any()):
+            fail(f"topk_ed: |delta d2| {float(err.max()):.3e} beyond the bound "
+                 f"{float(tol.min()):.3e}")
+        if bool((differ & ((picked - pv.double()).abs() > tol)).any()):
+            fail(f"topk_ed: {int(differ.sum())} ids differ beyond the bound")
+        return float(err.max()), float((err / tol).max()), int(differ.sum())
+
+    def bound(self):
+        """Each row and query read once, the slate written once; 2 m n d
+        flops of products and 2 n d of norms at the FP32 CUDA-core rate."""
+        m, d = self.q.shape
+        nbytes = 4 * self.n * d + 4 * m * d + 8 * m * self.s
+        return _bound(nbytes, 2.0 * m * self.n * d + 2.0 * self.n * d)
+
+
+class SummarizeCase:
+    """One paa or sax_pack call at a batch of series (or of PAA rows)."""
+
+    def __init__(self, torch, ops, ref, name, x, cfg):
+        self.torch, self.ops, self.ref = torch, ops, ref
+        self.name, self.x, self.cfg = name, x, cfg
+        self.bps = ops.breakpoint_table(cfg.card_bits, x.device)
+
+    def kernel(self):
+        if self.name == "paa":
+            return self.ops.paa(self.x, self.cfg)
+        return self.ops.sax_and_keys(self.x, self.cfg)
+
+    def plain(self):
+        if self.name == "paa":
+            return self.ref.paa_ref(self.x, self.cfg.n_segments)
+        return self.ref.sax_pack_ref(self.x, self.bps, self.cfg.card_bits,
+                                     self.cfg.key_words)
+
+    def library(self):
+        """The yardstick: a view and a mean for PAA; bucketize and shifts
+        for SAX-pack."""
+        torch, cfg = self.torch, self.cfg
+        if self.name == "paa":
+            b, n = self.x.shape
+            return self.x.view(b, cfg.n_segments, n // cfg.n_segments).mean(-1)
+        sym = torch.bucketize(self.x, self.bps, right=True)
+        shifts = torch.arange(cfg.card_bits - 1, -1, -1, device=self.x.device)
+        bits = ((sym[:, None, :] >> shifts[None, :, None]) & 1).flatten(1)
+        bits = torch.nn.functional.pad(bits, (0, 32 * cfg.key_words - bits.shape[1]))
+        weights = torch.ones((), dtype=torch.int64, device=self.x.device) << \
+            torch.arange(31, -1, -1, device=self.x.device)
+        return sym, (bits.view(-1, cfg.key_words, 32) * weights).sum(-1)
+
+    def bound(self):
+        """Bound by bytes: each input read once, each output written once."""
+        b, cfg = self.x.shape[0], self.cfg
+        if self.name == "paa":
+            nbytes = 4 * b * self.x.shape[1] + 4 * b * cfg.n_segments
+        else:
+            nbytes = (4 * b * cfg.n_segments * 2 + 4 * b * cfg.key_words
+                      + 4 * self.bps.numel())
+        return _bound(nbytes, 0.0)
+
+
+def _bound(nbytes, flops):
+    """The larger of bytes over the HBM rate and flops over the FP32 rate,
+    in ms, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def events_ms(torch, fn, reps):
@@ -263,10 +417,11 @@ def device_times(prof) -> collections.Counter:
     return out
 
 
-def kernel_device_ms(torch, fn, reps):
-    """Device time per call of the kernels alone, and its split between the
-    partial screen and the merge, from the profiler's CUPTI trace; (None,
-    {}) where the trace shows no device time."""
+def kernel_device_ms(torch, fn, reps, names):
+    """Device time per launch of the kernels alone (``names``, e.g. the
+    partial screen and the merge, with its split between them) from the
+    profiler's CUPTI trace, averaged over the launches the trace kept;
+    (None, {}) where it kept none of some kernel's launches."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -275,10 +430,17 @@ def kernel_device_ms(torch, fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    split = {k: sum(us for key, us in device_times(prof).items() if k in key)
-             / 1e3 / reps for k in DEVICE_KERNELS}
-    total = sum(split.values())
-    return (total, split) if total > 0 else (None, {})
+    split, kept = {}, {}
+    for k in names:
+        evs = [e for e in prof.key_averages() if k in e.key
+               and not str(getattr(e, "device_type", "")).endswith("CPU")]
+        kept[k] = sum(e.count for e in evs)
+        if kept[k] == 0:
+            return None, {}
+        split[k] = sum(e.self_device_time_total for e in evs) / 1e3 / kept[k]
+    if min(kept.values()) < reps:
+        log(f"timing: the trace kept {kept} of {reps} launches each")
+    return sum(split.values()), split
 
 
 def time_case(torch, case, reps=50):
@@ -286,7 +448,8 @@ def time_case(torch, case, reps=50):
     call, the plain version and the library yardstick, in ms per call."""
     call_ms = events_ms(torch, case.kernel, reps)
     try:
-        dev_ms, split = kernel_device_ms(torch, case.kernel, reps)
+        dev_ms, split = kernel_device_ms(torch, case.kernel, reps,
+                                         DEVICE_KERNELS[case.name])
     except Exception as exc:  # the trace is a measuring tool only
         log(f"timing: profiler unavailable ({type(exc).__name__}: {exc})")
         dev_ms, split = None, {}
@@ -334,6 +497,29 @@ def phase_kernels(torch, ops, ref):
     return worst
 
 
+def phase_topk_kernels(torch, ops, ref, worst):
+    """topk_ed against its plain version: a 4,096-row pass and the whole
+    2^20-row seismic table, batches of 16 and 64, slates of 13 and the
+    maximum."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    xc = seismic_table(torch, TABLE_ROWS, SERIES_LEN, gen, dev)
+    rows = torch.randperm(TABLE_ROWS, generator=gen, device=dev)[:TOPK_PASS_ROWS]
+    one_pass = xc[rows].contiguous()
+    for m in BATCHES_M:
+        pick = torch.randint(0, TABLE_ROWS, (m,), generator=gen, device=dev)
+        q = xc[pick] + 0.01 * torch.randn((m, SERIES_LEN), generator=gen, device=dev)
+        for layout, x in (("pass", one_pass), ("full", xc)):
+            for k in (K + 8, ops.max_slate()):
+                case = TopkCase(torch, ops, ref, q, x, k)
+                err, share, ndiff = case.check()
+                worst["topk_ed"] = max(worst["topk_ed"], err)
+                log(f"kernels: topk_ed f32 m={m} {layout} n={case.n} k={k}: "
+                    f"max|delta d2|={err:.3e} ({share:.2e} of the bound), "
+                    f"{ndiff} ids swapped within the bound")
+    del xc, one_pass
+
+
 @contextlib.contextmanager
 def probe_tier(torch, ops, engine, method, shapes):
     """Wrap the serving tier's query method of ``StreamingIndex`` (and only
@@ -348,7 +534,7 @@ def probe_tier(torch, ops, engine, method, shapes):
     from repro_torch.core.streaming import StreamingIndex
 
     real = getattr(StreamingIndex, method)
-    kernels = {n: getattr(ops, n) for n in ops.LAUNCHES}
+    kernels = {n: getattr(ops, n) for n in ("screen_select", "screen_select_quant")}
     rec = {"n": 0, "traced": [], "launches": collections.Counter(),
            "engine": collections.Counter(), "busy": collections.Counter(),
            "traced_s": 0.0}
@@ -432,7 +618,7 @@ def report_phase(name, rec, lat, kernel, fallback_limit, wall):
                       "device_busy_seconds": busy_s}
 
 
-def phase_serve(torch, ops, serve, engine, tier, dtype, shapes):
+def phase_serve(torch, ops, serve, engine, tier, dtype, shapes, keep=False):
     argv = ["--scheme", "BTP", "--batches", str(BATCHES),
             "--batch-size", str(BATCH_SIZE), "--series-len", str(SERIES_LEN),
             "--query-batch", str(QUERY_BATCH), "--window", str(WINDOW),
@@ -469,10 +655,12 @@ def phase_serve(torch, ops, serve, engine, tier, dtype, shapes):
             f"min={min(rec_k):.4f}")
     log(f"{name}: {len(out['served'])} served batches checked"
         + (" against the f64 brute force" if tier == "exact" else ""))
+    if keep:  # the later phases ask this index again
+        return launches, summary, (out, X)
     del out, idx, X
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, summary
+    return launches, summary, None
 
 
 def phase_repeats(torch, ops, engine, shapes):
@@ -531,6 +719,253 @@ def phase_repeats(torch, ops, engine, shapes):
     return launches, summary
 
 
+# ------------------------------------------------- the kernel backend's path
+@contextlib.contextmanager
+def record_shapes(ops, shapes):
+    """Count the call shapes of topk_ed, paa and sax_pack while inside."""
+    real = {n: getattr(ops, n) for n in ("topk_ed", "paa", "sax_and_keys")}
+
+    def topk(q, x, k):
+        shapes[("topk_ed", q.shape[0], x.shape[0], x.shape[1], k)] += 1
+        return real["topk_ed"](q, x, k)
+
+    def paa(x, cfg):
+        shapes[("paa", x.shape[0], x.shape[1], cfg.n_segments)] += 1
+        return real["paa"](x, cfg)
+
+    def sax(p, cfg):
+        shapes[("sax_pack", p.shape[0], cfg.n_segments, cfg.card_bits)] += 1
+        return real["sax_and_keys"](p, cfg)
+
+    ops.topk_ed, ops.paa, ops.sax_and_keys = topk, paa, sax
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(ops, n, fn)
+
+
+def timed_call(torch, ops, shapes, fn):
+    """One query call of the main path: launch counts set to 0 just before
+    it and read just after it; returns (ids, ms/query, launches)."""
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with record_shapes(ops, shapes):
+        _, ids, _ = fn()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / QUERY_BATCH * 1e3
+    return ids, dt, dict(ops.LAUNCHES)
+
+
+def near_breakpoint_rows(torch, x, p, bps):
+    """Rows with a PAA value nearer a breakpoint than the f32 error of a
+    segment mean in any summation order, 2 L u mean|x_segment| (u = 2^-24):
+    only there may two orders give two symbols."""
+    b, w = p.shape
+    seg = x.shape[1] // w
+    mag = x.abs().view(b, w, seg).mean(-1).double()
+    bound = 2.0 * seg * 2.0 ** -24 * mag
+    j = torch.searchsorted(bps, p.contiguous())
+    last = bps.numel() - 1
+    gap = torch.minimum((p.double() - bps[(j - 1).clamp(0, last)].double()).abs(),
+                        (p.double() - bps[j.clamp(0, last)].double()).abs())
+    return (gap <= bound).any(1)
+
+
+def check_summarize(torch, ops, ref, X_host, cfg, what):
+    """paa -> sax_pack on the card against the plain versions (bitwise) and
+    against the host summarization (equal away from the breakpoints)."""
+    import numpy as np
+
+    from repro_torch.core.sortable import interleave
+    from repro_torch.core.summarization import paa as host_paa, sax_from_paa
+
+    x = torch.from_numpy(np.ascontiguousarray(X_host)).to(DEVICE)
+    bps = ops.breakpoint_table(cfg.card_bits, x.device)
+    p, sym, keys = ops.summarize(x, cfg)
+    pp = ref.paa_ref(x, cfg.n_segments)
+    psym, pkeys = ref.sax_pack_ref(pp, bps, cfg.card_bits, cfg.key_words)
+    torch.cuda.synchronize()
+    if not torch.equal(p.view(torch.int32), pp.view(torch.int32)):
+        fail(f"{what}: paa differs from its plain version")
+    if not (torch.equal(sym, psym) and torch.equal(keys, pkeys)):
+        fail(f"{what}: sax_pack differs from its plain version")
+    del pp, psym, pkeys
+    hp = host_paa(X_host, cfg)
+    hsym = sax_from_paa(hp, cfg)
+    hkeys = interleave(hsym, cfg)
+    near = near_breakpoint_rows(torch, x, p, bps)
+    differ = ((sym != torch.from_numpy(hsym).to(DEVICE)).any(1)
+              | (keys != torch.from_numpy(hkeys.astype(np.int64)).to(DEVICE)).any(1))
+    rows = x.shape[0]
+    n_near, n_differ = int(near.sum()), int(differ.sum())
+    limit = max(1, int(NEAR_BREAKPOINT_LIMIT * rows))
+    perr = float((p.double() - torch.from_numpy(hp).to(DEVICE).double()).abs().max())
+    log(f"{what}: {rows} rows, paa/symbols/keys bitwise the plain versions; "
+        f"{n_differ} rows differ from the host summarization, {n_near} rows lie "
+        f"within the f32 error of a breakpoint (limit {limit}); max|paa - host "
+        f"paa|={perr:.3e}")
+    if bool((differ & ~near).any()):
+        fail(f"{what}: {int((differ & ~near).sum())} rows away from every "
+             "breakpoint differ from the host summarization")
+    if n_near > limit:
+        fail(f"{what}: {n_near} rows near a breakpoint, limit {limit}")
+    return {"rows": rows, "near_breakpoint_rows": n_near,
+            "rows_differing_from_host": n_differ, "max_abs_paa_vs_host": perr}
+
+
+def pct(values):
+    return {"p50_ms_per_query": float(percentile(values, 50)),
+            "p95_ms_per_query": float(percentile(values, 95)),
+            "calls": len(values)}
+
+
+def phase_kernel_backend(torch, ops, kept, shapes):
+    """Ask the exact f32 phase's index again, under backend="kernel": 16 of
+    its served (query batch, window) pairs on the exact tier, whose answers
+    must be the ids served (and the f64 brute force), and the approximate
+    tier under "kernel" and "device", whose ids must agree wherever the
+    query's keys do. The device backend runs the same calls beside it."""
+    import numpy as np
+
+    from repro_torch.core import SummarizationConfig
+    from repro_torch.core.sortable import interleave
+    from repro_torch.core.summarization import paa as host_paa, sax_from_paa
+
+    out, X = kept
+    idx, served = out["index"], out["served"]
+    cfg = SummarizationConfig(series_len=SERIES_LEN, n_segments=16, card_bits=8)
+    pick = np.unique(np.linspace(0, len(served) - 1, KERNEL_BACKEND_PAIRS).round()
+                     .astype(int))
+    if pick.size < KERNEL_BACKEND_PAIRS:
+        fail(f"kernel backend: only {pick.size} served pairs to ask again")
+    lat = collections.defaultdict(list)
+    launches = collections.Counter()
+    key_differ = 0
+    t0 = time.perf_counter()
+    for j in pick:
+        b, t0b, t1b, qs, ids = served[j]
+        lo, hi = t0b * BATCH_SIZE, (t1b + 1) * BATCH_SIZE
+        what = f"kernel backend batch {b + 1}"
+        for backend in ("kernel", "device"):
+            got, dt, ln = timed_call(torch, ops, shapes, lambda: idx.window_knn_batch(
+                qs, t0b, t1b, k=K, backend=backend))
+            lat[f"exact {backend}"].append(dt)
+            if backend == "kernel":
+                launches.update(ln)
+                if ln["topk_ed"] == 0:
+                    fail(f"{what}: the exact kernel backend never launched topk_ed")
+                if not np.array_equal(got, ids):
+                    fail(f"{what}: exact answers differ from the ids served")
+                check_exact(torch, X[lo:hi], qs, torch.from_numpy(got).to(DEVICE) - lo,
+                            what)
+        approx = {}
+        for backend in ("kernel", "device"):
+            approx[backend], dt, ln = timed_call(
+                torch, ops, shapes, lambda: idx.window_knn_approx_batch(
+                    qs, t0b, t1b, k=K, n_blocks=N_BLOCKS, backend=backend))
+            lat[f"approx {backend}"].append(dt)
+            if backend == "kernel":
+                launches.update(ln)
+                missing = [n for n in ("topk_ed", "paa", "sax_pack") if ln[n] == 0]
+                if missing:
+                    fail(f"{what}: the approximate kernel backend never launched "
+                         f"{missing}")
+        host_keys = interleave(sax_from_paa(host_paa(qs, cfg), cfg), cfg)
+        card_keys = ops.keys_to_host(ops.summarize(torch.from_numpy(qs).to(DEVICE),
+                                                   cfg)[2])
+        same_key = (host_keys == card_keys).all(1)
+        key_differ += int((~same_key).sum())
+        bad = (approx["kernel"] != approx["device"]).any(1) & same_key
+        if bad.any():
+            fail(f"{what}: {int(bad.sum())} approximate answers differ between "
+                 "the backends for queries with equal keys")
+    summary = {f"{mode}": pct(v) for mode, v in lat.items()}
+    summary["queries_with_differing_keys"] = key_differ
+    summary["pairs"] = int(pick.size)
+    summary["launches"] = dict(launches)
+    summary["seconds"] = time.perf_counter() - t0
+    for mode, v in summary.items():
+        log(f"kernel backend: {mode}: {v}")
+    return launches, summary
+
+
+def phase_adsplus(torch, ops, X_host, X, served, shapes):
+    """ADS+ over the same series: build on the host within ADS_BUILD_S, then
+    exact and approximate 16-query batches under "device" and "kernel"."""
+    import numpy as np
+
+    from repro_torch.core import ADSConfig, ADSIndex, SummarizationConfig
+
+    # why not the default 16 segments: the leaves the first 2^18 series give
+    wide = ADSIndex(ADSConfig(summarization=SummarizationConfig(
+        series_len=SERIES_LEN, n_segments=16, card_bits=8), device=DEVICE))
+    m16 = min(ADS_CHUNK, X_host.shape[0])
+    wide.insert_batch(X_host[:m16], np.arange(m16))
+    n16 = len(wide._flat_blocks(wide._flat()))
+    log(f"ADS+ at 16 segments: {m16} series fill {n16} leaves ({m16 / n16:.1f} "
+        f"series a leaf, {wide.n_splits} splits): a round of 32 leaves holds "
+        f"~{32 * m16 / n16:.0f} candidates, against the engine's device floor of "
+        "1,024")
+    del wide
+    ads = ADSIndex(ADSConfig(summarization=SummarizationConfig(
+        series_len=SERIES_LEN, n_segments=ADS_SEGMENTS, card_bits=8), device=DEVICE))
+    t0 = time.perf_counter()
+    n = 0
+    while n < X_host.shape[0] and time.perf_counter() - t0 < ADS_BUILD_S:
+        step = min(ADS_CHUNK, X_host.shape[0] - n)
+        ads.insert_batch(X_host[n:n + step], np.arange(n, n + step))
+        n += step
+    build_s = time.perf_counter() - t0
+    leaves = len(ads._flat_blocks(ads._flat()))
+    log(f"ADS+: inserted {n} of {X_host.shape[0]} series in {build_s:.1f}s "
+        f"({ads.n_splits} splits, {leaves} leaves; {ADS_SEGMENTS} segments, "
+        f"leaves of {ads.cfg.leaf_size}, {ads.cfg.mode} mode)")
+    lat = collections.defaultdict(list)
+    launches = collections.Counter()
+    per_mode = collections.defaultdict(collections.Counter)
+    batches = [served[j][3] for j in np.linspace(0, len(served) - 1, ADS_BATCHES)
+               .round().astype(int)]
+    # the first device call builds the flat leaf arena: set-up, not latency
+    timed_call(torch, ops, shapes, lambda: ads.knn_batch(batches[0], k=K))
+    for i, qs in enumerate(batches):
+        what = f"ADS+ batch {i + 1}"
+        approx = {}
+        for backend in ("device", "kernel"):
+            got, dt, ln = timed_call(torch, ops, shapes, lambda: ads.knn_batch(
+                qs, k=K, backend=backend))
+            lat[f"exact {backend}"].append(dt)
+            per_mode[f"exact {backend}"].update(ln)
+            need = "screen_select" if backend == "device" else "topk_ed"
+            if ln[need] == 0:
+                fail(f"{what}: the exact tier under {backend} never launched {need}")
+            check_exact(torch, X[:n], qs, torch.from_numpy(got).to(DEVICE),
+                        f"{what} exact {backend}")
+            approx[backend], dt, la = timed_call(
+                torch, ops, shapes, lambda: ads.knn_approx_batch(qs, k=K,
+                                                                 backend=backend))
+            lat[f"approx {backend}"].append(dt)
+            per_mode[f"approx {backend}"].update(la)
+            if backend == "kernel":
+                launches.update(ln)
+                launches.update(la)
+                if la["topk_ed"] == 0:
+                    fail(f"{what}: the approximate kernel backend never launched topk_ed")
+        if not np.array_equal(approx["device"], approx["kernel"]):
+            fail(f"{what}: approximate answers differ between the backends")
+    summary = {mode: pct(v) for mode, v in lat.items()}
+    summary.update(series=n, build_seconds=build_s, splits=ads.n_splits, leaves=leaves,
+                   leaves_at_16_segments={"series": m16, "leaves": n16},
+                   launches={mode: {k: c for k, c in ln.items() if c}
+                             for mode, ln in per_mode.items()})
+    for mode, v in summary.items():
+        log(f"ADS+: {mode}: {v}")
+    del ads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 def percentile(a, p):
     import numpy as np
 
@@ -579,7 +1014,7 @@ def phase_timing(torch, ops, ref, shapes, worst):
         log(f"timing: {name} at the main path's shape m={m} n={n} table={cap} "
             f"{dtype} s={s} {'gather' if gathered else 'full'} ({count} calls): "
             + timing_text(t, bound_ms, bound_by) + f", max|delta d2|={err:.3e}")
-        entries.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        entries.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name], "ms": t["ms"],
                         "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -588,7 +1023,67 @@ def phase_timing(torch, ops, ref, shapes, worst):
                                   "dtype": dtype, "s": s, "gather": gathered}})
         del table, scale, xn2, rows, case
         torch.cuda.empty_cache()
+    for name in ("topk_ed", "paa", "sax_pack"):
+        mine = [(c, key) for key, c in shapes.items() if key[0] == name]
+        if not mine:
+            fail(f"timing: the main path never called {name}")
+        count, key = max(mine)
+        case, shape = new_kernel_case(torch, ops, ref, key, gen)
+        err = case_error(torch, case)
+        worst[name] = max(worst[name], err)
+        t = time_case(torch, case)
+        bound_ms, bound_by = case.bound()
+        log(f"timing: {name} at the main path's shape {shape} ({count} calls): "
+            + timing_text(t, bound_ms, bound_by) + f", max|error|={err:.3e}")
+        entries.append({"name": name, "route": "cuda", "source": SOURCES[name],
+                        "replaces": REPLACES[name], "ms": t["ms"],
+                        "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": t["library_ms"], "shape": shape})
+        if name != "topk_ed":  # and over the whole seismic set
+            big = ("paa", BATCHES * BATCH_SIZE, SERIES_LEN, 16) if name == "paa" \
+                else ("sax_pack", BATCHES * BATCH_SIZE, 16, 8)
+            case, shape = new_kernel_case(torch, ops, ref, big, gen)
+            log(f"timing: {name} at {shape}: "
+                + timing_text(time_case(torch, case, 20), *case.bound()))
+        del case
+        torch.cuda.empty_cache()
     return entries
+
+
+def new_kernel_case(torch, ops, ref, key, gen):
+    """A topk_ed, paa or sax_pack call at a recorded shape, on seismic rows."""
+    from repro_torch.core import SummarizationConfig
+
+    dev = torch.device(DEVICE)
+    if key[0] == "topk_ed":
+        _, m, n, d, k = key
+        x = seismic_table(torch, n, d, gen, dev).contiguous()
+        q = x[:m] + 0.01 * torch.randn((m, d), generator=gen, device=dev)
+        return (TopkCase(torch, ops, ref, q.contiguous(), x, k),
+                {"m": m, "n": n, "d": d, "k": k})
+    if key[0] == "paa":
+        _, b, n, w = key
+        cfg = SummarizationConfig(series_len=n, n_segments=w, card_bits=8)
+        x = seismic_table(torch, b, n, gen, dev).contiguous()
+        return SummarizeCase(torch, ops, ref, "paa", x, cfg), {"rows": b, "n": n, "w": w}
+    _, b, w, c = key
+    cfg = SummarizationConfig(series_len=SERIES_LEN, n_segments=w, card_bits=c)
+    p = ref.paa_ref(seismic_table(torch, b, SERIES_LEN, gen, dev), w).contiguous()
+    return (SummarizeCase(torch, ops, ref, "sax_pack", p, cfg),
+            {"rows": b, "w": w, "card_bits": c, "key_words": cfg.key_words})
+
+
+def case_error(torch, case):
+    """The largest |kernel - plain| of a timing case (d2, PAA values, or
+    symbols and key words)."""
+    if isinstance(case, TopkCase):
+        return case.check()[0]
+    got, want = case.kernel(), case.plain()
+    torch.cuda.synchronize()
+    if case.name == "paa":
+        return float((got - want).abs().max())
+    return float(max((got[0] - want[0]).abs().max(), (got[1] - want[1]).abs().max()))
 
 
 def main() -> int:
@@ -614,24 +1109,46 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     spills = [ln.strip() for ln in _build.BUILD_LOG.splitlines()
-              if "spill" in ln and not ln.strip().startswith("0 bytes")]
+              if re.search(r"[1-9]\d* bytes spill", ln)]
     log(f"build: {time.perf_counter() - t0:.1f}s ({len(spills)} ptxas spill lines "
         "reporting non-zero spills)" if spills else
         f"build: {time.perf_counter() - t0:.1f}s, no register spills")
 
     worst = phase_kernels(torch, ops, ref)
+    phase_topk_kernels(torch, ops, ref, worst)
     engine = get_engine(DEVICE)
     shapes = collections.Counter()
     launches = collections.Counter()
     summary = {}
-    for tier, dtype in (("exact", "f32"), ("exact", "int8"), ("approx", "f32")):
-        got, summary[f"{tier}-{dtype}"] = phase_serve(
+    got, summary["exact-f32"], kept = phase_serve(
+        torch, ops, serve, engine, "exact", "f32", shapes, keep=True)
+    launches.update(got)
+    # the kernel backend's path, on the exact f32 phase's index and series
+    from repro_torch.core import SummarizationConfig
+
+    out, X = kept
+    X_host = out["index"].raw.scan()
+    scfg = SummarizationConfig(series_len=SERIES_LEN, n_segments=16, card_bits=8)
+    summary["summarize-seismic"] = check_summarize(
+        torch, ops, ref, X_host, scfg, "summarize: the seismic set")
+    summary["summarize-queries"] = check_summarize(
+        torch, ops, ref, out["served"][-1][3], scfg, "summarize: a query batch")
+    got, summary["kernel-backend"] = phase_kernel_backend(torch, ops, kept, shapes)
+    launches.update(got)
+    got, summary["adsplus"] = phase_adsplus(torch, ops, X_host, X, out["served"],
+                                            shapes)
+    launches.update({n: c for n, c in got.items() if n == "topk_ed"})
+    del out, X, X_host, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tier, dtype in (("exact", "int8"), ("approx", "f32")):
+        got, summary[f"{tier}-{dtype}"], _ = phase_serve(
             torch, ops, serve, engine, tier, dtype, shapes)
         launches.update(got)
     got, summary["exact-int8-repeats"] = phase_repeats(torch, ops, engine, shapes)
     launches.update(got)
-    for key, c in shapes.most_common(12):
-        log(f"serve: main-path call {key} x{c} (traced batches)")
+    for key, c in shapes.most_common(16):
+        log(f"main path: call {key} x{c}")
     entries = phase_timing(torch, ops, ref, shapes, worst)
     for e in entries:
         e["launches"] = launches[e["name"]]

@@ -22,6 +22,7 @@ from .run_registry import BufferChunk, RunRegistry, RunSet
 from .clsm import CLSM, CLSMConfig
 from .ingest import IngestPipeline
 from .streaming import StreamConfig, StreamingIndex, resolve_backend
+from .adsplus import ADSConfig, ADSIndex
 
 __all__ = [
     "SummarizationConfig", "breakpoints", "paa", "sax", "sax_from_paa",
@@ -37,5 +38,5 @@ __all__ = [
     "empty_topk_state", "merge_topk_state", "recall_at_k",
     "CLSM", "CLSMConfig", "StreamConfig", "StreamingIndex",
     "BufferChunk", "RunRegistry", "RunSet", "IngestPipeline",
-    "resolve_backend",
+    "resolve_backend", "ADSConfig", "ADSIndex",
 ]

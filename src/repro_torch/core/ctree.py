@@ -412,6 +412,7 @@ class SortedRun:
             table_ids=table_ids,
             fetch_account=fetch_account,
             screen_dtype=screen_dtype,
+            device=self.device,
         )
 
     def plan_exact(
@@ -443,13 +444,19 @@ class SortedRun:
     def _query_keys_batch(self, Q: np.ndarray, backend: str) -> np.ndarray:
         """Sortable keys for a query batch: (m, n) series -> (m, nw) uint32.
 
-        Keys are summarized on the host. ``backend="kernel"`` (the PAA and
-        SAX-pack kernels) raises until those kernels are ported (ROADMAP
-        Queue 2 items 4-5)."""
+        ``backend="kernel"`` sends the batch to the run's device and
+        produces PAA, symbols and interleaved keys there (``kernels.ops.
+        summarize``: one ``paa`` and one ``sax_pack`` launch); like the
+        reference's kernel path it does not z-normalize. The other backends
+        summarize on the host."""
         if backend == "kernel":
-            raise NotImplementedError(
-                'backend="kernel" needs the paa and sax_pack kernels, not '
-                "ported yet (ROADMAP Queue 2 items 4-5)")
+            import torch
+
+            from ..kernels import ops as kernel_ops
+
+            q = torch.from_numpy(np.ascontiguousarray(Q, np.float32)).to(self.device)
+            _, _, keys = kernel_ops.summarize(q, self.cfg)
+            return kernel_ops.keys_to_host(keys).reshape(-1, self.cfg.key_words)
         qp = paa(Q, self.cfg)
         qsym = sax_from_paa(qp, self.cfg).astype(np.int32)
         return interleave(qsym, self.cfg).reshape(-1, self.cfg.key_words)

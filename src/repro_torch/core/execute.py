@@ -16,9 +16,10 @@ be copied into every ``knn_*`` method lives here exactly once:
   f64 re-rank — one launch instead of einsum + argpartition + host gather,
   at shape-bucketed signatures. ``backend="numpy"`` is the retained host twin (one f32-sgemm
   screen + exact f64 re-rank per pass; also the fallback below the device
-  size floor and for sources without arenas); ``backend="kernel"`` (one
-  ``topk_ed`` launch per pass) raises until that kernel is ported
-  (ROADMAP Queue 2 item 3);
+  size floor and for sources without arenas); ``backend="kernel"`` fetches
+  each pass's rows on the host, uploads them to the source's device
+  (``SourceOps.device``) and launches the ``topk_ed`` kernel once per pass
+  (the pre-engine opt-in path);
 * folding of the batched (m, k) best-so-far state across sources with
   :func:`merge_topk_state` — the array analogue of the per-query bsf heap.
 
@@ -50,9 +51,6 @@ from .summarization import paa
 
 BACKENDS = ("device", "numpy", "kernel")
 
-_KERNEL_BACKEND_MISSING = (
-    'backend="kernel" needs the topk_ed kernel, not ported yet '
-    "(ROADMAP Queue 2 item 3); use the default backend=\"device\"")
 _MESH_MISSING = ('shard="mesh" is not ported yet (ROADMAP Queue 1 item 9, '
                  "mesh and distributed)")
 
@@ -213,6 +211,27 @@ def _screen_topk_slack(
     )
 
 
+def _kernel_topk_dists(
+    Q: np.ndarray, data: np.ndarray, k: int, device
+) -> tuple[np.ndarray, np.ndarray]:
+    """Top-k distances of Q (m, n) against data (E, n) via one ``topk_ed``
+    launch on ``device`` (the pass's rows uploaded from the host), slack-8
+    slate + exact f64 re-rank."""
+    import torch
+
+    from ..kernels import ops as kernel_ops
+
+    if device is None:
+        raise ValueError('backend="kernel" needs the source\'s device '
+                         "(SourceOps.device)")
+    data = np.ascontiguousarray(data, np.float32)
+    ksel = min(k + 8, data.shape[0])  # slack absorbs f32 near-tie reordering
+    q = torch.from_numpy(np.ascontiguousarray(Q, np.float32)).to(device)
+    x = torch.from_numpy(data).to(device)
+    _, rows = kernel_ops.topk_ed_bucketed(q, x, ksel)
+    return _rerank_slate(Q, data, rows, k)
+
+
 # ---------------------------------------------------------------------------
 # the device verification path (the default backend)
 # ---------------------------------------------------------------------------
@@ -291,15 +310,13 @@ def execute(
     batch); ``entries_pruned`` counts window filtering + the entry-level
     MINDIST screen.
 
-    ``backend="kernel"`` and ``shard="mesh"`` raise ``NotImplementedError``
-    until their kernels and modules are ported.
+    ``shard="mesh"`` raises ``NotImplementedError`` until the mesh and
+    distributed modules are ported.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown batch verify backend {backend!r}")
     if shard not in (None, "none", "mesh"):
         raise ValueError(f"unknown shard mode {shard!r}")
-    if backend == "kernel":
-        raise NotImplementedError(_KERNEL_BACKEND_MISSING)
     if shard == "mesh":
         raise NotImplementedError(_MESH_MISSING)
     Q = np.asarray(Q, np.float32)
@@ -444,7 +461,11 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
             nv, gids = _device_topk(Q, ops, pos, k, exact=True)
         else:
             data = ops.fetch(pos)
-            nv, ni = _screen_topk_exact(Q, data, k)
+            if backend == "kernel":
+                # ONE all-pairs topk_ed launch per (source, batch, pass)
+                nv, ni = _kernel_topk_dists(Q, data, k, ops.device)
+            else:
+                nv, ni = _screen_topk_exact(Q, data, k)
             gids = np.where(ni >= 0, ops.ids[pos][np.maximum(ni, 0)], -1)
         vals, ids = merge_topk_state(vals, ids, nv, gids)
 
@@ -554,7 +575,7 @@ def _exec_range(src: RangeSource, plan, Q, k, vals, ids, stats, backend):
             hpos = upos[hsel]
             data_h = ops.fetch(hpos)
             gid_h = ops.ids[hpos]
-            if ops.norms2 is not None:
+            if backend != "kernel" and ops.norms2 is not None:
                 xsq_h = ops.norms2(hpos)  # cached |x|^2: fetched once
         if dev.any():
             dsel = np.zeros(upos.size, bool)
@@ -583,13 +604,17 @@ def _exec_range(src: RangeSource, plan, Q, k, vals, ids, stats, backend):
             rows = hmap[j0:j1]
             sub = data_h[rows]
             gid = gid_h[rows]
-        if contiguous:
-            xsq_g = (ops.norms2(np.arange(glo, ghi))
-                     if ops.norms2 is not None else None)
+        if backend == "kernel":
+            nv, ni = _kernel_topk_dists(Q[qidx], sub, k, ops.device)
+            gi = np.where(ni >= 0, gid[np.maximum(ni, 0)], -1)
         else:
-            xsq_g = None if xsq_h is None else xsq_h[rows]
-        nv, ni = _screen_topk_slack(Q[qidx], sub, k, xsq=xsq_g)
-        gi = gid[ni]
+            if contiguous:
+                xsq_g = (ops.norms2(np.arange(glo, ghi))
+                         if ops.norms2 is not None else None)
+            else:
+                xsq_g = None if xsq_h is None else xsq_h[rows]
+            nv, ni = _screen_topk_slack(Q[qidx], sub, k, xsq=xsq_g)
+            gi = gid[ni]
         mv, mi = merge_topk_state(vals[qidx], ids[qidx], nv, gi)
         vals[qidx], ids[qidx] = mv, mi
     return vals, ids
@@ -618,8 +643,12 @@ def _exec_group(src: GroupSource, plan, Q, k, vals, ids, stats, backend):
             nv, gi = _device_topk(Q[qidx], ops, pos, k, exact=False)
         else:  # small leaf groups take the host tail (same answers)
             data = ops.fetch(pos)
-            nv, ni = _screen_topk_slack(Q[qidx], data, k)
-            gi = ops.ids[pos][ni]
+            if backend == "kernel":
+                nv, ni = _kernel_topk_dists(Q[qidx], data, k, ops.device)
+                gi = np.where(ni >= 0, ops.ids[pos][np.maximum(ni, 0)], -1)
+            else:
+                nv, ni = _screen_topk_slack(Q[qidx], data, k)
+                gi = ops.ids[pos][ni]
         mv, mi = merge_topk_state(vals[qidx], ids[qidx], nv, gi)
         vals[qidx], ids[qidx] = mv, mi
     return vals, ids

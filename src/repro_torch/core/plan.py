@@ -108,6 +108,9 @@ class SourceOps:
     # None = the engine default). Informational: the arena itself carries
     # the authoritative dtype, this mirrors it into plans for introspection
     screen_dtype: Optional[str] = None
+    # the device the source's index lives on: backend="kernel" uploads each
+    # pass's rows there and launches topk_ed on it
+    device: Optional[object] = None
 
 
 @dataclasses.dataclass

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface. On first use they are
-compiled with ``nvcc`` for ``sm_90a`` into one shared library in
+The sources under ``csrc/`` have a plain C interface. On first use each is
+compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started
+together), and the objects are linked into one shared library in
 ``build/repro_torch_kernels/`` at the repository root, named by a hash of
 the sources so an edited kernel is rebuilt, and loaded with :mod:`ctypes`.
 Nothing is compiled or loaded when this module is imported: a machine
@@ -18,10 +19,10 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "screen_select.cu",)
+SOURCES = (CSRC / "screen_select.cu", CSRC / "summarize.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -38,6 +39,10 @@ _SIGNATURES = {
         [_I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
     "coconut_screen_select_quant": (
         [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
+    "coconut_topk_ed": ([_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
+    "coconut_summarize_layout": ([_P], None),
+    "coconut_paa": ([_P, _I, _I, _I, _P, _P], _I),
+    "coconut_sax_pack": ([_P, _I, _I, _P, _I, _I, _I, _P, _P, _P], _I),
 }
 
 
@@ -51,6 +56,35 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit "
                            "(set CUDA_HOME or put nvcc on PATH)")
     return str(path)
+
+
+def _compile_and_link(so: Path) -> str:
+    """Compile every source at once, link the objects into ``so``; returns
+    what nvcc and ptxas said."""
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{src.stem}-{so.stem}.{tag}.o") for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(logs)
+    try:
+        for src, proc in zip(SOURCES, procs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({proc.returncode}):\n{log}")
+        tmp = so.with_suffix(f".{tag}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"linking failed ({link.returncode}):\n{log}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return log
 
 
 def library() -> ctypes.CDLL:
@@ -68,13 +102,7 @@ def library() -> ctypes.CDLL:
         so = BUILD_DIR / f"libcoconut_kernels-{digest.hexdigest()[:16]}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            BUILD_LOG = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
-            os.replace(tmp, so)
+            BUILD_LOG = _compile_and_link(so)
         lib = ctypes.CDLL(str(so))
         for name, (argtypes, restype) in _SIGNATURES.items():
             fn = getattr(lib, name)
@@ -83,6 +111,9 @@ def library() -> ctypes.CDLL:
         out = (ctypes.c_int * 3)()
         lib.coconut_layout(out)
         LAYOUT.update(max_slate=out[0], query_block=out[1], tile=out[2])
+        lib.coconut_summarize_layout(out)
+        LAYOUT.update(paa_row_floats=out[0], max_key_words=out[1],
+                      max_breakpoints=out[2])
         _LIB = lib
         return lib
 
@@ -90,6 +121,8 @@ def library() -> ctypes.CDLL:
 def layout() -> dict:
     """The kernels' launch layout as the built library defines it:
     ``max_slate``, ``query_block`` (queries per block) and ``tile``
-    (candidates per tile)."""
+    (candidates per tile) of the screen and top-k kernels;
+    ``paa_row_floats`` (the most floats of one padded row the PAA kernel
+    stages), ``max_key_words`` and ``max_breakpoints`` of SAX-pack."""
     library()
     return LAYOUT

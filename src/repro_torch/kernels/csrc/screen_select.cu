@@ -1,15 +1,21 @@
 // Fused screen + top-s select for the verification engine, by hand for Hopper.
 //
-// Replaces the Pallas kernels screen_select_pallas (f32 and bf16 tables) and
-// screen_select_quant_pallas (int8 tables with per-row scales) of
-// src/repro/kernels/ed_scan_kernel.py (bodies _screen_select_body and
-// _screen_select_quant_body, running merge _merge_topk_tile).
+// Replaces the Pallas kernels screen_select_pallas (f32 and bf16 tables),
+// screen_select_quant_pallas (int8 tables with per-row scales) and
+// topk_ed_pallas (f32 candidates, norms computed in the kernel) of
+// src/repro/kernels/ed_scan_kernel.py (bodies _screen_select_body,
+// _screen_select_quant_body and _topk_ed_body, running merge
+// _merge_topk_tile).
 //
 // What it computes, per query i and candidate j (table row r = rows[j], or
 // r = j when no row list is given):
 //
 //     d2[i, j] = (qn2[i] + xn2[r]) - 2 * g,   g = <q_i, x_r>            (f32, bf16)
 //                                             g = scale[r] * <q_i, v_r> (int8)
+//
+// For topk_ed there is no norms input: xn2[r] is summed in the tile from the
+// same f32 values that feed the dot product (one FMA chain over d per
+// candidate), as the Pallas body's _tile_d2 computes |x|^2 per tile.
 //
 // with every product and sum in true f32 on the CUDA cores: the table values
 // are upcast in registers, and there is no TF32 or tensor-core product, so the
@@ -21,6 +27,10 @@
 // queries, d = 128..256) the screen does 2 m flops per table byte read at f32,
 // so a small batch is bound by the 3.35 TB/s of device memory and a large
 // batch, or an int8 table, by the 67 TFLOP/s of f32 FMA on the CUDA cores.
+// topk_ed reads no norms but sums them: every warp of a block squares the
+// tile's candidates for itself (the same FMA chain, so the same value in each
+// warp), half again as many FMAs as the screen alone; at its path's shape
+// (m <= 16, one pass of a few thousand rows) it stays bound by bytes.
 //
 // Design. The TPU kernel walks the candidate axis in order inside one grid
 // and carries the running top-k in VMEM; on the H100 that would leave m/bm
@@ -124,7 +134,7 @@ __device__ __forceinline__ void warp_offer(float* sv, int* si, int s, float v, i
   }
 }
 
-template <typename T, int SMAX>
+template <typename T, int SMAX, bool NORMS>
 __global__ void __launch_bounds__(NTHREADS)
 screen_partial_kernel(const float* __restrict__ q, int m, int d, const T* __restrict__ x,
                       const float* __restrict__ xn2, const float* __restrict__ scale,
@@ -176,10 +186,12 @@ screen_partial_kernel(const float* __restrict__ q, int m, int d, const T* __rest
       rowid[tid] = (c < c_end) ? (rows != nullptr ? rows[c] : c) : -1;
     }
     float acc[2][4];
+    float xacc[4];  // |x|^2 of the lane's candidates (NORMS only)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) {
+      acc[0][j] = acc[1][j] = 0.f;
+      xacc[j] = 0.f;
+    }
 
     for (int k0 = 0; k0 < d; k0 += DK) {
       __syncthreads();  // rowid is written; the previous slice is consumed
@@ -204,6 +216,7 @@ screen_partial_kernel(const float* __restrict__ q, int m, int d, const T* __rest
           const float b = xs[lane + 32 * j][kk];
           acc[0][j] = fmaf(a0, b, acc[0][j]);
           acc[1][j] = fmaf(a1, b, acc[1][j]);
+          if (NORMS) xacc[j] = fmaf(b, b, xacc[j]);
         }
       }
     }
@@ -218,7 +231,8 @@ screen_partial_kernel(const float* __restrict__ q, int m, int d, const T* __rest
         if (r >= 0) {
           float g = acc[i][j];
           if (scale != nullptr) g = __fmul_rn(g, scale[r]);  // dequantise the cross term
-          v = __fsub_rn(__fadd_rn(qn2s[qi], xn2[r]), __fmul_rn(2.f, g));
+          const float xn = NORMS ? xacc[j] : xn2[r];
+          v = __fsub_rn(__fadd_rn(qn2s[qi], xn), __fmul_rn(2.f, g));
         }
         dt[qi][cc] = v;
       }
@@ -284,12 +298,12 @@ slate_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ par
   }
 }
 
-template <typename T, int SMAX>
+template <typename T, int SMAX, bool NORMS>
 int launch_t(const float* q, int m, int d, const T* x, const float* xn2, const float* scale,
              const int* rows, int n, int s, int chunk, int n_splits, float* part_v,
              int* part_i, float* qn2, float* out_v, int* out_i, cudaStream_t stream) {
   dim3 grid(n_splits, (m + BM - 1) / BM);
-  screen_partial_kernel<T, SMAX><<<grid, NTHREADS, 0, stream>>>(
+  screen_partial_kernel<T, SMAX, NORMS><<<grid, NTHREADS, 0, stream>>>(
       q, m, d, x, xn2, scale, rows, n, s, chunk, n_splits, part_v, part_i, qn2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -298,22 +312,23 @@ int launch_t(const float* q, int m, int d, const T* x, const float* xn2, const f
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool NORMS = false>
 int launch(const float* q, int m, int d, const T* x, const float* xn2, const float* scale,
            const int* rows, int n, int s, int chunk, int n_splits, float* part_v, int* part_i,
            float* qn2, float* out_v, int* out_i, cudaStream_t stream) {
   if (s <= 16)
-    return launch_t<T, 16>(q, m, d, x, xn2, scale, rows, n, s, chunk, n_splits, part_v,
-                           part_i, qn2, out_v, out_i, stream);
-  if (s <= 32)
-    return launch_t<T, 32>(q, m, d, x, xn2, scale, rows, n, s, chunk, n_splits, part_v,
-                           part_i, qn2, out_v, out_i, stream);
-  if (s <= 64)
-    return launch_t<T, 64>(q, m, d, x, xn2, scale, rows, n, s, chunk, n_splits, part_v,
-                           part_i, qn2, out_v, out_i, stream);
-  if (s <= MAX_SLATE)
-    return launch_t<T, MAX_SLATE>(q, m, d, x, xn2, scale, rows, n, s, chunk, n_splits,
+    return launch_t<T, 16, NORMS>(q, m, d, x, xn2, scale, rows, n, s, chunk, n_splits,
                                   part_v, part_i, qn2, out_v, out_i, stream);
+  if (s <= 32)
+    return launch_t<T, 32, NORMS>(q, m, d, x, xn2, scale, rows, n, s, chunk, n_splits,
+                                  part_v, part_i, qn2, out_v, out_i, stream);
+  if (s <= 64)
+    return launch_t<T, 64, NORMS>(q, m, d, x, xn2, scale, rows, n, s, chunk, n_splits,
+                                  part_v, part_i, qn2, out_v, out_i, stream);
+  if (s <= MAX_SLATE)
+    return launch_t<T, MAX_SLATE, NORMS>(q, m, d, x, xn2, scale, rows, n, s, chunk,
+                                         n_splits, part_v, part_i, qn2, out_v, out_i,
+                                         stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -365,6 +380,18 @@ int coconut_screen_select_quant(const void* q, int m, int d, const void* x, cons
                         static_cast<float*>(part_v), static_cast<int*>(part_i),
                         static_cast<float*>(qn2), static_cast<float*>(out_v),
                         static_cast<int*>(out_i), static_cast<cudaStream_t>(stream));
+}
+
+// topk_ed: f32 candidates x (n, d) taken in order (no row list), |x|^2
+// summed in the tile. qn2 receives |q|^2 as a by-product.
+int coconut_topk_ed(const void* q, int m, int d, const void* x, int n, int s, int chunk,
+                    int n_splits, void* part_v, void* part_i, void* qn2, void* out_v,
+                    void* out_i, void* stream) {
+  return launch<float, true>(static_cast<const float*>(q), m, d, static_cast<const float*>(x),
+                             nullptr, nullptr, nullptr, n, s, chunk, n_splits,
+                             static_cast<float*>(part_v), static_cast<int*>(part_i),
+                             static_cast<float*>(qn2), static_cast<float*>(out_v),
+                             static_cast<int*>(out_i), static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

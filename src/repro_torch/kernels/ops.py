@@ -1,28 +1,40 @@
-"""Public wrappers around the hand-written screen+select kernels.
+"""Public wrappers around the hand-written kernels.
 
 Dispatch follows the device of the tensors: a CUDA tensor goes to the CUDA
-kernel (``csrc/screen_select.cu``, built on first use by :mod:`._build`) or
-the call raises; a CPU tensor goes to the plain PyTorch version in
-:mod:`.ref`. There is no fallback from one to the other.
+kernel (``csrc/screen_select.cu`` for the screens and ``topk_ed``,
+``csrc/summarize.cu`` for ``paa`` and ``sax_pack``; built on first use by
+:mod:`._build`) or the call raises; a CPU tensor goes to the plain PyTorch
+version in :mod:`.ref`. There is no fallback from one to the other.
 
 Each kernel has a launch count in :data:`LAUNCHES`, raised by one where the
 wrapper launches it and nowhere else, so a run can show that its main path
 went through the kernel.
 
 Contract (the reference's ``kernels.ops`` wrappers): the screen is
-``|q|^2 + xn2 - 2 q.x`` over precomputed candidate norms, the slate is the
-top-k in lexicographic (d2, candidate) order, slots that no candidate can
-fill come back as ``(inf, -1)``, and ``k > n`` pads the tail that way. The
-reference zero-pads ``d`` to a multiple of 128 for the TPU's lanes; the CUDA
-kernel takes any ``d`` and needs no padding.
+``|q|^2 + xn2 - 2 q.x`` over precomputed candidate norms (``topk_ed`` sums
+``|x|^2`` from the rows), the slate is the top-k in lexicographic (d2,
+candidate) order, slots that no candidate can fill come back as
+``(inf, -1)``, ``k > n`` pads the tail that way, and an empty batch returns
+without a launch. The reference zero-pads ``d`` to a multiple of 128 for the
+TPU's lanes and pads candidate counts to power-of-two buckets for its jit
+cache; the CUDA kernels take any ``d`` and ``n``, so neither padding is
+made, and the results are those of an unpadded launch.
+
+The summarize front (``paa`` -> ``sax_and_keys``) returns sortable keys as
+int64 tensors holding the uint32 word values (torch has no ``<<`` for uint32
+on the CPU); :func:`keys_to_host` hands them to the host index as numpy
+uint32. Like the reference's ``ops.summarize``, it does not z-normalize,
+whatever ``cfg.znorm`` says.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..core.summarization import SummarizationConfig, breakpoints
 from . import ref
 
 # sentinel |x|^2 for pad candidates: dominates any real screened distance
@@ -30,9 +42,11 @@ from . import ref
 BIG_NORM2 = 1e30
 
 # launches of each CUDA kernel since the last reset
-LAUNCHES = {"screen_select": 0, "screen_select_quant": 0}
+LAUNCHES = {"screen_select": 0, "screen_select_quant": 0, "topk_ed": 0,
+            "paa": 0, "sax_pack": 0}
 
 _SM_COUNT: dict = {}
+_BREAKPOINTS: dict = {}  # (card_bits, device) -> breakpoint_table
 
 
 def reset_launches() -> None:
@@ -68,6 +82,10 @@ def _splits(device: torch.device, n: int, m: int, s: int,
     want = max(1, min(tiles, (4 * _SM_COUNT[device]) // m_blocks, 32768 // s))
     chunk = math.ceil(tiles / want) * tile
     return chunk, math.ceil(n / chunk)
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check_rows(rows: torch.Tensor, n_table: int) -> torch.Tensor:
@@ -137,7 +155,8 @@ def _screen(name: str, q, x, scale, xn2, k: int, rows):
 
 
 def _launch(name, q, x, scale, xn2, k, kk, rows, n):
-    """The CUDA kernels: partial slates over candidate splits, then a merge."""
+    """The CUDA kernels of screen_select, screen_select_quant and topk_ed:
+    partial slates over candidate splits, then a merge."""
     from . import _build  # builds the library on first use
 
     layout = _build.layout()
@@ -160,12 +179,14 @@ def _launch(name, q, x, scale, xn2, k, kk, rows, n):
     qn2 = torch.empty((m,), **f32)
     out_v = torch.empty((m, kk), **f32)
     out_i = torch.empty((m, kk), **i32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     rows_ptr = None if rows is None else rows.data_ptr()
     lib = _build.library()
     tail = (rows_ptr, n, kk, chunk, n_splits, part_v.data_ptr(), part_i.data_ptr(),
             qn2.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
-    if name == "screen_select":
+    if name == "topk_ed":
+        rc = lib.coconut_topk_ed(q.data_ptr(), m, d, x.data_ptr(), *tail[1:])
+    elif name == "screen_select":
         code = {torch.float32: 0, torch.bfloat16: 1}.get(x.dtype)
         if code is None:
             raise TypeError(f"screen_select takes f32 or bf16 tables, not {x.dtype}")
@@ -221,3 +242,142 @@ def screen_select_quant(
     term after the product (``<q, s v> = s <q, v>``). Same candidate, tie
     and padding contract as :func:`screen_select`."""
     return _screen("screen_select_quant", q, x, scale, xn2, k, rows)
+
+
+# ---------------------------------------------------------------------------
+# top-k squared ED with norms computed in the kernel (the kernel backend)
+# ---------------------------------------------------------------------------
+def _check_pair(q: torch.Tensor, x: torch.Tensor) -> torch.device:
+    if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1]:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, x {tuple(x.shape)}")
+    if q.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"q and x must be float32, not {q.dtype} and {x.dtype}")
+    if q.device != x.device:
+        raise ValueError(f"q on {q.device}, x on {x.device}")
+    return q.device
+
+
+def topk_ed(q: torch.Tensor, x: torch.Tensor,
+            k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-query k smallest squared EDs and candidate rows, ascending.
+
+    q: (m, d) f32, x: (n, d) f32 -> ((m, k) f32, (m, k) int32). The kernel
+    sums ``|x|^2`` from the rows it reads. Ties break toward the smaller
+    candidate index; with fewer than k candidates the tail is (inf, -1)."""
+    dev = _check_pair(q, x)
+    m, n = q.shape[0], x.shape[0]
+    if m == 0 or n == 0:  # no launch: an empty batch, or no candidates
+        return (torch.full((m, k), math.inf, dtype=torch.float32, device=dev),
+                torch.full((m, k), -1, dtype=torch.int32, device=dev))
+    kk = max(1, min(k, n))
+    if dev.type == "cpu":
+        vals, idxs = ref.topk_ed_ref(q, x, kk)
+        return _finish(vals, idxs, n, k)
+    if dev.type != "cuda":
+        raise ValueError(f"no topk_ed for device {dev}")
+    return _launch("topk_ed", q, x.contiguous(), None, None, k, kk, None, n)[:2]
+
+
+def topk_ed_bucketed(q: torch.Tensor, x: torch.Tensor,
+                     k: int) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`topk_ed` as the query executor calls it, with host results:
+    ((m, kk) f32 d2, (m, kk) int64 rows into ``x``), kk = min(k, |x|), never
+    filled slots (inf, -1); no candidates gives (m, k) of (inf, -1). The
+    reference pads the candidate count to a power-of-two bucket for its jit
+    cache; the CUDA kernel needs no padding, so none is made."""
+    m, e = q.shape[0], x.shape[0]
+    if e == 0:  # no candidates: every requested slot is explicit padding
+        return np.full((m, k), np.inf, np.float32), np.full((m, k), -1, np.int64)
+    v, i = topk_ed(q, x, min(k, e))
+    return v.cpu().numpy(), i.cpu().numpy().astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# the summarize front: PAA -> SAX symbols -> interleaved sortable keys
+# ---------------------------------------------------------------------------
+def paa(x: torch.Tensor, cfg: SummarizationConfig) -> torch.Tensor:
+    """(B, n) f32 -> (B, w) f32 PAA segment means, summed left to right."""
+    w = cfg.n_segments
+    if x.dim() != 2 or x.shape[1] % w:
+        raise ValueError(f"x of shape {tuple(x.shape)} does not split into {w} segments")
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, not {x.dtype}")
+    dev, b = x.device, x.shape[0]
+    if b == 0:  # empty batch: no launch
+        return torch.zeros((0, w), dtype=torch.float32, device=dev)
+    if dev.type == "cpu":
+        return ref.paa_ref(x, w)
+    if dev.type != "cuda":
+        raise ValueError(f"no paa for device {dev}")
+    from . import _build
+
+    row_floats = w * (x.shape[1] // w + 1)
+    if row_floats > _build.layout()["paa_row_floats"]:
+        raise ValueError(f"series of length {x.shape[1]} exceed the paa kernel's "
+                         "staging tile")
+    x = x.contiguous()
+    out = torch.empty((b, w), dtype=torch.float32, device=dev)
+    rc = _build.library().coconut_paa(x.data_ptr(), b, x.shape[1], w,
+                                      out.data_ptr(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"paa kernel launch failed with CUDA error {rc}")
+    LAUNCHES["paa"] += 1
+    return out
+
+
+def breakpoint_table(card_bits: int, dev: torch.device) -> torch.Tensor:
+    """The 2^c - 1 sorted SAX breakpoints as an f32 tensor on ``dev``."""
+    key = (card_bits, dev)
+    if key not in _BREAKPOINTS:
+        _BREAKPOINTS[key] = torch.from_numpy(breakpoints(card_bits)).to(dev)
+    return _BREAKPOINTS[key]
+
+
+def sax_and_keys(p: torch.Tensor,
+                 cfg: SummarizationConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """PAA (B, w) f32 -> (symbols (B, w) int32, sortable keys (B, nw) int64
+    holding the uint32 word values)."""
+    w, c, nw = cfg.n_segments, cfg.card_bits, cfg.key_words
+    if p.dim() != 2 or p.shape[1] != w:
+        raise ValueError(f"p of shape {tuple(p.shape)}, want (B, {w})")
+    if p.dtype != torch.float32:
+        raise TypeError(f"p must be float32, not {p.dtype}")
+    dev, b = p.device, p.shape[0]
+    if b == 0:  # empty batch: no launch
+        return (torch.zeros((0, w), dtype=torch.int32, device=dev),
+                torch.zeros((0, nw), dtype=torch.int64, device=dev))
+    bps = breakpoint_table(c, dev)
+    if dev.type == "cpu":
+        return ref.sax_pack_ref(p, bps, c, nw)
+    if dev.type != "cuda":
+        raise ValueError(f"no sax_pack for device {dev}")
+    from . import _build
+
+    layout = _build.layout()
+    if nw > layout["max_key_words"] or bps.numel() > layout["max_breakpoints"]:
+        raise ValueError(f"{nw} key words or {bps.numel()} breakpoints exceed the "
+                         "sax_pack kernel's limits")
+    p = p.contiguous()
+    sym = torch.empty((b, w), dtype=torch.int32, device=dev)
+    words = torch.empty((b, nw), dtype=torch.int32, device=dev)
+    rc = _build.library().coconut_sax_pack(p.data_ptr(), b, w, bps.data_ptr(),
+                                           bps.numel(), c, nw, sym.data_ptr(),
+                                           words.data_ptr(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"sax_pack kernel launch failed with CUDA error {rc}")
+    LAUNCHES["sax_pack"] += 1
+    return sym, words.to(torch.int64) & 0xFFFFFFFF
+
+
+def summarize(x: torch.Tensor, cfg: SummarizationConfig
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Series (B, n) -> (PAA (B, w), symbols (B, w), keys (B, nw)): one
+    ``paa`` launch, then one ``sax_pack`` launch. No z-normalization."""
+    p = paa(x, cfg)
+    sym, keys = sax_and_keys(p, cfg)
+    return p, sym, keys
+
+
+def keys_to_host(keys: torch.Tensor) -> np.ndarray:
+    """Sortable keys held in int64 -> the host index's numpy uint32 words."""
+    return keys.cpu().numpy().astype(np.uint32)

@@ -107,3 +107,110 @@ def test_engine_answers_do_not_depend_on_the_device(cuda, dtype):
         out.append(eng.screen_topk(view, trows, Q, 5))
     np.testing.assert_array_equal(out[0][1], out[1][1])
     np.testing.assert_array_equal(out[0][0], out[1][0])
+
+
+# ---------------------------------------------------------------------------
+# topk_ed, paa and sax_pack (the kernel backend)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m,n,d,k", [(16, 4096, 256, 13), (64, 3000, 128, 128),
+                                     (5, 129, 96, 7), (3, 20, 64, 30)])
+def test_cuda_topk_ed_matches_plain(cuda, m, n, d, k):
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    ops.reset_launches()
+    v, i = ops.topk_ed(q, x, k)
+    kk = min(k, n)
+    pv, pi = ref.topk_ed_ref(q, x, kk)
+    pfull, pord = ref.topk_ed_ref(q, x, n)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["topk_ed"] == 1
+    assert v.shape == i.shape == (m, k)
+    tol = 1e-5 * float((q * q).sum(-1).max() + (x * x).sum(-1).max())
+    np.testing.assert_allclose(v[:, :kk].cpu().numpy(), pv.cpu().numpy(),
+                               rtol=1e-5, atol=tol)
+    d2 = torch.empty_like(pfull).scatter_(1, pord.long(), pfull)
+    picked = torch.gather(d2, 1, i[:, :kk].long())
+    assert (i[:, :kk].cpu() != pi.cpu()).float().mean() < 0.01
+    np.testing.assert_allclose(picked.cpu().numpy(), pv.cpu().numpy(),
+                               rtol=1e-5, atol=tol)
+    assert torch.isinf(v[:, kk:]).all() and (i[:, kk:] == -1).all()
+
+
+def test_cuda_topk_ed_ties_empty_and_cap(cuda):
+    v, i = ops.topk_ed(torch.zeros((3, 32), device=cuda),
+                       torch.zeros((40, 32), device=cuda), 4)
+    assert i.tolist() == [[0, 1, 2, 3]] * 3
+    x = torch.randn((32, 64), device=cuda).repeat(2, 1)  # row j == row j + 32
+    _, i = ops.topk_ed(x[:4] + 0.01, x, 2)
+    assert (i[:, 0] < 32).all() and (i[:, 1] >= 32).all()
+    ops.reset_launches()
+    v, i = ops.topk_ed(torch.zeros((0, 8), device=cuda), torch.zeros((5, 8), device=cuda), 3)
+    assert v.shape == (0, 3)
+    v, i = ops.topk_ed(torch.zeros((2, 8), device=cuda), torch.zeros((0, 8), device=cuda), 3)
+    assert torch.isinf(v).all() and (i == -1).all()
+    assert ops.LAUNCHES["topk_ed"] == 0  # empty batches launch nothing
+    n = ops.max_slate() + 8
+    with pytest.raises(ValueError, match="maximum"):
+        ops.topk_ed(torch.zeros((2, 8), device=cuda), torch.zeros((n, 8), device=cuda),
+                    ops.max_slate() + 1)
+
+
+@pytest.mark.parametrize("b,n,w,c", [(1000, 256, 16, 8), (257, 96, 12, 6),
+                                     (33, 64, 8, 4), (5, 128, 16, 2)])
+def test_cuda_summarize_matches_plain(cuda, b, n, w, c):
+    """PAA sums in the plain version's order, so values, symbols and keys
+    are bitwise the plain version's; keys equal the host's interleave."""
+    from repro_torch.core import sortable, summarization
+
+    cfg = summarization.SummarizationConfig(series_len=n, n_segments=w, card_bits=c)
+    rng = np.random.default_rng(2)
+    xh = rng.standard_normal((b, n)).astype(np.float32).cumsum(axis=1) / 8
+    x = torch.from_numpy(xh).to(cuda)
+    ops.reset_launches()
+    p, sym, keys = ops.summarize(x, cfg)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paa"] == 1 and ops.LAUNCHES["sax_pack"] == 1
+    pp = ref.paa_ref(x, w)
+    psym, pkeys = ref.sax_pack_ref(pp, ops.breakpoint_table(c, x.device), c, cfg.key_words)
+    np.testing.assert_array_equal(p.cpu().numpy().view(np.uint32),
+                                  pp.cpu().numpy().view(np.uint32))
+    np.testing.assert_array_equal(sym.cpu().numpy(), psym.cpu().numpy())
+    np.testing.assert_array_equal(keys.cpu().numpy(), pkeys.cpu().numpy())
+    host = ops.keys_to_host(keys)
+    np.testing.assert_array_equal(
+        host, sortable.interleave(summarization.sax_from_paa(p.cpu().numpy(), cfg), cfg))
+    ops.reset_launches()
+    assert ops.paa(torch.zeros((0, n), device=cuda), cfg).shape == (0, w)
+    assert ops.sax_and_keys(torch.zeros((0, w), device=cuda), cfg)[1].shape == (
+        0, cfg.key_words)
+    assert ops.LAUNCHES["paa"] == ops.LAUNCHES["sax_pack"] == 0
+
+
+def test_kernel_backend_answers_do_not_depend_on_the_device(cuda):
+    from repro_torch.core import (ADSConfig, ADSIndex, CTree, CTreeConfig, RawStore,
+                                  SummarizationConfig)
+
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((6000, 128)).astype(np.float32).cumsum(axis=1)
+    Q = rng.standard_normal((16, 128)).astype(np.float32).cumsum(axis=1)
+    scfg = SummarizationConfig(series_len=128, n_segments=16, card_bits=8)
+    out = []
+    for dev in ("cpu", "cuda"):
+        raw = RawStore(128, device=dev)
+        ids = raw.append(X)
+        ct = CTree(CTreeConfig(summarization=scfg, block_size=256, device=dev))
+        ct.bulk_build(X, ids)
+        ads = ADSIndex(ADSConfig(summarization=scfg, leaf_size=512, device=dev))
+        ads.insert_batch(X, ids)
+        ops.reset_launches()
+        res = [ct.knn_batch(Q, k=5, raw=raw, backend="kernel"),
+               ct.knn_approx_batch(Q, k=5, n_blocks=4, raw=raw, backend="kernel"),
+               ads.knn_batch(Q, k=5, raw=raw, backend="kernel"),
+               ads.knn_approx_batch(Q, k=5, raw=raw, backend="kernel")]
+        if dev == "cuda":
+            assert min(ops.LAUNCHES[n] for n in ("topk_ed", "paa", "sax_pack")) > 0
+        out.append(res)
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a[1], b[1])
+        np.testing.assert_array_equal(a[0], b[0])

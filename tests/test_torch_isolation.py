@@ -23,8 +23,9 @@ def _modules():
 
 def test_importing_every_module_loads_neither_jax_nor_repro():
     names = _modules()
-    assert "repro_torch.core.verify_engine" in names
-    assert "repro_torch.launch.serve" in names
+    for name in ("core.verify_engine", "core.adsplus", "kernels.ops",
+                 "kernels.ref", "kernels._build", "launch.serve"):
+        assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -64,13 +65,14 @@ def no_card():
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
     from repro_torch.core import (
-        CLSM, CLSMConfig, CTree, CTreeConfig, RawStore, StreamConfig,
-        StreamingIndex, VerifyEngine, get_engine)
+        CLSM, ADSConfig, ADSIndex, CLSMConfig, CTree, CTreeConfig, RawStore,
+        StreamConfig, StreamingIndex, VerifyEngine, get_engine)
     from repro_torch.launch import serve
 
     for make in (VerifyEngine, get_engine, lambda: RawStore(16),
                  lambda: CTree(CTreeConfig()), lambda: CLSM(CLSMConfig()),
-                 lambda: StreamingIndex(StreamConfig())):
+                 lambda: StreamingIndex(StreamConfig()),
+                 lambda: ADSIndex(ADSConfig())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert StreamConfig().device == "cuda"
@@ -90,3 +92,24 @@ def test_only_cpu_tensors_run_the_plain_versions(no_card):
     x = torch.zeros((4, 8), device="meta")
     with pytest.raises(ValueError):
         ops.screen_select(q.to("meta"), x, torch.zeros(4, device="meta"), 2)
+    with pytest.raises(ValueError):
+        ops.topk_ed(q.to("meta"), x, 2)
+    with pytest.raises(ValueError):
+        ops.topk_ed(q, x, 2)  # tensors on two devices
+    from repro_torch.core import SummarizationConfig
+
+    cfg = SummarizationConfig(series_len=8, n_segments=4, card_bits=4)
+    for fn, a in ((ops.paa, x), (ops.sax_and_keys, torch.zeros((4, 4), device="meta"))):
+        with pytest.raises(ValueError):
+            fn(a, cfg)
+
+
+def test_every_kernel_source_is_built():
+    """Each CUDA source under csrc/ goes into the library, and each kernel
+    wrapper has a launch count."""
+    from repro_torch.kernels import _build, ops
+
+    assert sorted(p.name for p in _build.SOURCES) == sorted(
+        p.name for p in (PKG / "kernels" / "csrc").glob("*.cu"))
+    assert set(ops.LAUNCHES) == {"screen_select", "screen_select_quant",
+                                 "topk_ed", "paa", "sax_pack"}

@@ -1,11 +1,14 @@
-"""The port's screen+select wrappers against the reference kernels.
+"""The port's kernel wrappers against the reference kernels.
 
-On the CPU the port's ``ops.screen_select(_quant)`` run their plain PyTorch
-versions; the reference runs its Pallas kernels in interpret mode. Same
-inputs, made with numpy: slate ids must be equal, and screen values agree
-to f32 tolerance (tiled and whole-matrix f32 sums differ in the last bits,
-so bitwise agreement belongs after the engine's f64 re-rank). The CUDA
-kernels are held against the plain versions in ``test_torch_cuda.py``.
+On the CPU the port's ``ops`` wrappers (``screen_select(_quant)``,
+``topk_ed(_bucketed)``, ``paa``, ``sax_and_keys``, ``summarize``) run their
+plain PyTorch versions; the reference runs its Pallas kernels in interpret
+mode. Same inputs, made with numpy: slate ids, symbols and keys must be
+equal, and values agree to f32 tolerance, 1e-5 relative (tiled and
+whole-matrix f32 sums differ in the last bits: up to 4.6e-5 absolute on the
+top-k sweep's d2 of ~250, so bitwise agreement belongs after the engine's
+f64 re-rank). The CUDA kernels are held against the plain versions in
+``test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
@@ -13,8 +16,11 @@ import torch
 
 jnp = pytest.importorskip("jax.numpy")
 
+from repro.core import summarization as rsum  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels import ref as rref  # noqa: E402
+from repro_torch.core import sortable as psort  # noqa: E402
+from repro_torch.core import summarization as psum  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 # the suite runs several workers on a few cores: one intra-op thread each
@@ -199,4 +205,185 @@ def test_cpu_tensors_never_count_as_kernel_launches(rng):
     x, scale, xn2 = _quantize(rng.standard_normal((40, 16)).astype(np.float32))
     ops.screen_select(_t(q), _t(x.astype(np.float32)), _t(xn2), 3)
     ops.screen_select_quant(_t(q), _t(x), _t(scale), _t(xn2), 3)
-    assert ops.LAUNCHES == {"screen_select": 0, "screen_select_quant": 0}
+    ops.topk_ed(_t(q), _t(x.astype(np.float32)), 3)
+    ops.summarize(_t(x.astype(np.float32)), psum.SummarizationConfig(
+        series_len=16, n_segments=4, card_bits=4))
+    assert ops.LAUNCHES == {"screen_select": 0, "screen_select_quant": 0,
+                            "topk_ed": 0, "paa": 0, "sax_pack": 0}
+
+
+# ---------------------------------------------------------------------------
+# topk_ed: the kernel backend's top-k with norms computed from the rows
+# ---------------------------------------------------------------------------
+def _hold_topk(v, i, rv, ri, kk):
+    np.testing.assert_array_equal(i.numpy()[:, :kk], np.asarray(ri)[:, :kk])
+    np.testing.assert_allclose(v.numpy()[:, :kk], np.asarray(rv)[:, :kk],
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("k", [1, 5, 10])
+@pytest.mark.parametrize("m,n,d", [(8, 512, 128), (7, 333, 64), (64, 1024, 128),
+                                   (1, 100, 96), (3, 29, 160)])
+def test_topk_ed_matches_reference(m, n, d, k, rng):
+    q = rng.standard_normal((m, d)).astype(np.float32)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    v, i = ops.topk_ed(_t(q), _t(x), k)
+    rv, ri = rops.topk_ed(q, x, k, block_m=8, block_n=64)
+    kk = min(k, n)
+    _hold_topk(v, i, rv, ri, kk)
+    ov, oi = rref.topk_ed_ref(jnp.asarray(q), jnp.asarray(x), kk)
+    _hold_topk(v, i, ov, oi, kk)
+    assert np.all(v.numpy()[:, kk:] == np.inf)
+    assert np.all(i.numpy()[:, kk:] == -1)
+    assert v.shape == i.shape == (m, k) and i.dtype == torch.int32
+
+
+@pytest.mark.parametrize("m,n", [(1, 3), (5, 1), (13, 67)])
+def test_topk_ed_k_beyond_candidates_pads(m, n, rng):
+    q = rng.standard_normal((m, 64)).astype(np.float32)
+    x = rng.standard_normal((n, 64)).astype(np.float32)
+    v, i = ops.topk_ed(_t(q), _t(x), 4)
+    rv, ri = rops.topk_ed(q, x, 4, block_m=8, block_n=64)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(v.numpy(), np.asarray(rv), rtol=1e-5)
+
+
+def test_topk_ed_ties_break_to_smaller_index(rng):
+    q = rng.standard_normal((4, 64)).astype(np.float32)
+    x = np.tile(rng.standard_normal((32, 64)).astype(np.float32), (2, 1))
+    v, i = ops.topk_ed(_t(q), _t(x), 3)
+    assert np.all(i.numpy()[:, 0] < 32)  # duplicate at j and j+32: j wins
+    _, ri = rops.topk_ed(q, x, 3, block_m=8, block_n=32)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    _, i = ops.topk_ed(torch.zeros((2, 8)), torch.zeros((8, 8)), 3)
+    np.testing.assert_array_equal(i.numpy(), [[0, 1, 2], [0, 1, 2]])
+
+
+def test_topk_ed_empty_queries_and_empty_candidates(rng):
+    x = rng.standard_normal((32, 64)).astype(np.float32)
+    q = rng.standard_normal((4, 64)).astype(np.float32)
+    v, i = ops.topk_ed(torch.zeros((0, 64)), _t(x), 3)
+    assert v.shape == (0, 3) and i.shape == (0, 3)
+    v, i = ops.topk_ed(_t(q), torch.zeros((0, 64)), 3)
+    assert (v.numpy() == np.inf).all() and (i.numpy() == -1).all()
+    v, i = ops.topk_ed_bucketed(_t(q), torch.zeros((0, 64)), 4)
+    assert v.shape == (4, 4) and (i == -1).all() and np.isinf(v).all()
+    with pytest.raises(TypeError):
+        ops.topk_ed(_t(q).double(), _t(x).double(), 3)
+
+
+@pytest.mark.parametrize("e", [63, 64, 65, 127, 128])
+def test_topk_ed_bucketed_matches_reference(e, rng):
+    """The reference pads candidates to power-of-two buckets; the port does
+    not, and must be indistinguishable from it on either side of a bucket."""
+    q = rng.standard_normal((5, 32)).astype(np.float32)
+    x = rng.standard_normal((e, 32)).astype(np.float32)
+    v, i = ops.topk_ed_bucketed(_t(q), _t(x), 7)
+    rv, ri = rops.topk_ed_bucketed(q, x, 7)
+    assert i.dtype == np.int64 and v.dtype == np.float32
+    np.testing.assert_array_equal(i, ri)
+    np.testing.assert_allclose(v, rv, rtol=1e-5)
+    v, i = ops.topk_ed_bucketed(_t(q), _t(x[:3]), 7)
+    rv, ri = rops.topk_ed_bucketed(q, x[:3], 7)
+    assert i.shape == (5, 3)
+    np.testing.assert_array_equal(i, ri)
+
+
+# ---------------------------------------------------------------------------
+# the summarize front: PAA -> SAX symbols -> interleaved sortable keys
+# ---------------------------------------------------------------------------
+def _near_breakpoint(x, p, c):
+    """Rows with a PAA value nearer a breakpoint than the f32 error of a
+    segment mean in any summation order (``2 L u mean|x|``, u = 2^-24):
+    the only rows whose symbols may depend on the order."""
+    b, n = x.shape
+    w = p.shape[1]
+    mag = np.abs(x.astype(np.float64)).reshape(b, w, n // w).mean(-1)
+    bound = 2.0 * (n // w) * 2.0 ** -24 * mag
+    bps = psum.breakpoints(c).astype(np.float64)
+    gap = np.abs(p.astype(np.float64)[..., None] - bps).min(-1)
+    return (gap <= bound).any(-1)
+
+
+@pytest.mark.parametrize("b,n,w", [(64, 128, 16), (100, 256, 16), (8, 64, 8),
+                                   (257, 96, 12)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_paa_matches_reference(b, n, w, dtype, rng):
+    rc = rsum.SummarizationConfig(series_len=n, n_segments=w, card_bits=8)
+    pc = psum.SummarizationConfig(series_len=n, n_segments=w, card_bits=8)
+    x = rng.standard_normal((b, n)).astype(dtype)
+    out = ops.paa(_t(x.astype(np.float32)), pc)
+    np.testing.assert_allclose(out.numpy(), np.asarray(rops.paa(x, rc)),
+                               rtol=1e-5, atol=1e-6)
+    # one fixed summation order: left to right, then divided by the length
+    seg = x.astype(np.float32).reshape(b, w, n // w)
+    acc = seg[:, :, 0].copy()
+    for j in range(1, n // w):
+        acc += seg[:, :, j]
+    np.testing.assert_array_equal(out.numpy(), acc / np.float32(n // w))
+
+
+@pytest.mark.parametrize("b,w,c", [(64, 16, 8), (100, 8, 4), (33, 12, 6),
+                                   (8, 16, 2)])
+def test_sax_and_keys_match_reference(b, w, c, rng):
+    rc = rsum.SummarizationConfig(series_len=w * 4, n_segments=w, card_bits=c)
+    pc = psum.SummarizationConfig(series_len=w * 4, n_segments=w, card_bits=c)
+    p = rng.standard_normal((b, w)).astype(np.float32)
+    p[0, :3] = psum.breakpoints(c)[:3]  # values exactly on a breakpoint
+    sym, keys = ops.sax_and_keys(_t(p), pc)
+    rsym, rkeys = rops.sax_and_keys(p, rc)
+    assert sym.dtype == torch.int32 and keys.dtype == torch.int64
+    np.testing.assert_array_equal(sym.numpy(), np.asarray(rsym))
+    host = ops.keys_to_host(keys)
+    assert host.dtype == np.uint32
+    np.testing.assert_array_equal(host, np.asarray(rkeys))
+    np.testing.assert_array_equal(host, psort.interleave(psum.sax_from_paa(p, pc), pc))
+
+
+@pytest.mark.parametrize("b,n,w,c", [(120, 128, 16, 8), (77, 64, 8, 6),
+                                     (16, 256, 16, 8)])
+def test_summarize_matches_reference_and_host(b, n, w, c, rng):
+    """Keys equal the reference's kernel path and the host summarization,
+    except on rows whose PAA lies within f32 tolerance of a breakpoint
+    (counted; the summation orders differ there)."""
+    rc = rsum.SummarizationConfig(series_len=n, n_segments=w, card_bits=c)
+    pc = psum.SummarizationConfig(series_len=n, n_segments=w, card_bits=c)
+    x = rng.standard_normal((b, n)).astype(np.float32).cumsum(axis=1) / 8
+    p, sym, keys = ops.summarize(_t(x), pc)
+    rp, rsym, rkeys = rops.summarize(x, rc)
+    near = _near_breakpoint(x, p.numpy(), c)
+    assert near.mean() < 0.05
+    far = ~near
+    np.testing.assert_allclose(p.numpy(), np.asarray(rp), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(sym.numpy()[far], np.asarray(rsym)[far])
+    np.testing.assert_array_equal(ops.keys_to_host(keys)[far], np.asarray(rkeys)[far])
+    hsym = psum.sax(x, pc)
+    np.testing.assert_array_equal(sym.numpy()[far], hsym[far])
+    np.testing.assert_array_equal(ops.keys_to_host(keys)[far],
+                                  psort.interleave(hsym, pc)[far])
+
+
+def test_summarize_skips_znorm_like_the_reference(rng):
+    """The reference's kernel path summarizes raw series whatever
+    ``cfg.znorm`` says (its host ``paa`` z-normalizes); the port keeps that."""
+    pc = psum.SummarizationConfig(series_len=64, n_segments=8, card_bits=6,
+                                  znorm=True)
+    rc = rsum.SummarizationConfig(series_len=64, n_segments=8, card_bits=6,
+                                  znorm=True)
+    x = 3.0 + rng.standard_normal((20, 64)).astype(np.float32)
+    p, sym, _ = ops.summarize(_t(x), pc)
+    np.testing.assert_allclose(p.numpy(), np.asarray(rops.summarize(x, rc)[0]),
+                               rtol=1e-5)
+    assert not np.array_equal(sym.numpy(), psum.sax(x, pc))
+
+
+def test_summarize_empty_batch(rng):
+    cfg = psum.SummarizationConfig(series_len=64, n_segments=8, card_bits=6)
+    assert ops.paa(torch.zeros((0, 64)), cfg).shape == (0, 8)
+    sym, keys = ops.sax_and_keys(torch.zeros((0, 8)), cfg)
+    assert sym.shape == (0, 8) and keys.shape == (0, cfg.key_words)
+    assert sym.dtype == torch.int32 and keys.dtype == torch.int64
+    p, sym, keys = ops.summarize(torch.zeros((0, 64)), cfg)
+    assert p.shape == (0, 8) and sym.shape == (0, 8)
+    with pytest.raises(ValueError):
+        ops.paa(torch.zeros((3, 60)), cfg)

@@ -133,7 +133,7 @@ def _same(a, b):
     assert vars(ast) == vars(bst)
 
 
-@pytest.mark.parametrize("backend", ["device", "numpy"])
+@pytest.mark.parametrize("backend", ["device", "numpy", "kernel"])
 @pytest.mark.parametrize("mat", [False, True])
 @pytest.mark.parametrize("k", [1, 7])
 def test_ctree_exact_and_approx_equal_reference(mat, k, backend):
@@ -240,10 +240,6 @@ def test_range_routing_equals_reference():
 def test_unported_backends_raise_and_unknown_names_error():
     X, Q = _data(600), _queries(3)
     (_, _), (pct, praw) = _pair_ctree(X, True)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-        pct.knn_batch(Q, k=3, raw=praw, backend="kernel")
-    with pytest.raises(NotImplementedError, match="Queue 2 items 4-5"):
-        pct.knn_approx_batch(Q, k=3, raw=praw, backend="kernel")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         pct.knn_batch(Q, k=3, raw=praw, shard="mesh")
     with pytest.raises(ValueError, match="backend"):

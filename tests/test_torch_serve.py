@@ -4,8 +4,12 @@ Both ``serve_coconut`` loops run on the same small namespace and seeds (the
 port with ``device="cpu"``). Every window query either loop answers is
 recorded through its ``StreamingIndex``: the port must serve the same ids,
 batch for batch, in the exact and the approximate tier (whose recall oracle
-is recorded too). Async ingest is compared in the exact tier only, whose
-answers do not depend on which runs the worker has published yet. Flags that are not ported yet are refused at parse time.
+is recorded too). Async ingest is compared in the exact tier only. There each
+exact window query first drains the ingest backlog, in both packages, so
+both loops query the same published runs and log the same modeled I/O:
+without the drain, what a query reads depends on how far the background
+worker has got, which neither package makes deterministic. Flags that are
+not ported yet are refused at parse time.
 """
 import argparse
 
@@ -34,12 +38,16 @@ def _args(tier, ingest, dtype):
 
 
 def _record(monkeypatch, module):
-    """Wrap the module's batched window queries to log every answer."""
+    """Wrap the module's batched window queries to log every answer. An
+    exact window query drains the async ingest backlog first (a no-op under
+    sync ingest), so it reads the same published runs in both packages."""
     log = []
     for name in ("window_knn_batch", "window_knn_approx_batch"):
         real = getattr(module.StreamingIndex, name)
 
         def wrapped(self, Q, t0, t1, *a, _real=real, _name=name, **kw):
+            if _name == "window_knn_batch":
+                assert self.drain(timeout=300)
             vals, ids, stats = _real(self, Q, t0, t1, *a, **kw)
             log.append((_name, t0, t1, vals.copy(), ids.copy()))
             return vals, ids, stats
