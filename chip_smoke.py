@@ -11,13 +11,17 @@ Phases, each reported on lines of its own:
 3. kernels: each kernel against its plain PyTorch version on the card, on a
             centered seismic table of 2^20 x 256 rows at f32, bf16 and int8,
             batches of 16 and 64 queries, a 3*2^14-row gather and the full
-            table, slates of 13 (k = 5 plus the engine's slack) and the
-            kernels' maximum. Ids must be equal except between candidates
-            whose plain distances lie within the engine's certificate bound
-            of each other, and every |delta d2| must lie within that bound.
-            The same for topk_ed (batches of 16 and 64, a 4,096-row pass and
-            the whole table, slates of 13 and the maximum), whose bound also
-            covers the norms it sums itself.
+            table, slates of 13 (k = 5 plus the engine's slack), one kernel
+            pass (128) and 200 (two passes). Ids must be equal except
+            between candidates whose plain distances lie within the
+            engine's certificate bound of each other, and every |delta d2|
+            must lie within that bound. The same for topk_ed (batches of 16
+            and 64, a 4,096-row pass and the whole table, slates of 13, 128,
+            200 and 500), whose bound also covers the norms it sums itself,
+            and for min_ed (batches of 16 and 64, the whole table and a
+            table of 2^20 - 37 rows, queries equal to a row that has a
+            duplicate: the lower row must win), which must also equal
+            topk_ed's k = 1 answer.
 4. serve:   the port's serving loop (``repro_torch.launch.serve``) over
             1,024,000 seismic series of length 256 (a 1 GiB f32 arena on the
             card), BTP, 16-query batches after every fifth of 200 ingest
@@ -33,7 +37,7 @@ Phases, each reported on lines of its own:
             answer must equal an f64 brute force over the window, computed
             on the card. Then exact int8 serving of a stream of repeating
             events, where the int8 certificate holds, checked the same way.
-   Phases 5-7 run right after the exact f32 serve phase, on its index.
+   Phases 5-10 run right after the exact f32 serve phase, on its index.
 5. summarize: paa -> sax_pack over the exact f32 phase's 1,024,000 series
             and a query batch: PAA values, symbols and keys bitwise those of
             the plain versions; symbols and keys equal the host
@@ -46,14 +50,28 @@ Phases, each reported on lines of its own:
             returns the same ids for every query whose keys agree. Each
             call launches topk_ed (and paa and sax_pack in the approximate
             tier), counts set to 0 just before it and read just after.
-7. ADS+:    an ADSIndex (the reference's defaults, full mode, 8 segments)
+7. long slates: the last served batch asked again at k = 200 (a slate of
+            208, two kernel passes) under ``"device"`` and ``"kernel"``:
+            ids equal the f64 brute force, and the tier launched its kernel.
+8. 1-NN:    ``ops.min_ed`` of every served 16-query batch against all
+            1,024,000 raw series: ids equal an f64 brute force except
+            between rows within the f32 bound of each other (counted), and
+            each answer equals topk_ed's k = 1.
+9. pruning front: the last served batch's PAA (``ops.paa``), then
+            ``ops.mindist`` against the SAX region of every entry of the
+            index's runs and against every block zone map: bitwise the
+            plain version, the host's bounds to rtol 1e-5, and every bound
+            at or below the f64 squared ED of its entry (of every entry of
+            its block) up to f32 slack.
+10. ADS+:   an ADSIndex (the reference's defaults, full mode, 8 segments)
             over the same series, exact and approximate 16-query batches
             under ``"device"`` and ``"kernel"``: exact answers equal the f64
             brute force, approximate answers agree across the backends.
-8. timing:  each kernel at the shape the main path launched it at most
-            often: its device time, its plain version, one PyTorch library
-            yardstick (used nowhere in the port) and the least time the card
-            could take (its bound).
+11. timing: each kernel at the shape the main path launched it at most
+            often (min_ed at the 1-NN phase's, mindist at the pruning
+            front's): its device time, its plain version, one PyTorch
+            library yardstick (used nowhere in the port) and the least time
+            the card could take (its bound).
 
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -121,6 +139,8 @@ SOURCES = {
     "topk_ed": "src/repro_torch/kernels/csrc/screen_select.cu",
     "paa": "src/repro_torch/kernels/csrc/summarize.cu",
     "sax_pack": "src/repro_torch/kernels/csrc/summarize.cu",
+    "min_ed": "src/repro_torch/kernels/csrc/screen_select.cu",
+    "mindist": "src/repro_torch/kernels/csrc/lower_bound.cu",
 }
 REPLACES = {
     "screen_select": "src/repro/kernels/ed_scan_kernel.py:227",
@@ -128,13 +148,26 @@ REPLACES = {
     "topk_ed": "src/repro/kernels/ed_scan_kernel.py:184",
     "paa": "src/repro/kernels/paa_kernel.py:28",
     "sax_pack": "src/repro/kernels/sax_pack_kernel.py:43",
+    "min_ed": "src/repro/kernels/ed_scan_kernel.py:331",
+    "mindist": "src/repro/kernels/lb_kernel.py:30",
 }
 # the device kernels each wrapper launches, as the profiler names them
 DEVICE_KERNELS = {"screen_select": ("screen_partial_kernel", "slate_merge_kernel"),
-                  "paa": ("paa_kernel",), "sax_pack": ("sax_pack_kernel",)}
+                  "paa": ("paa_kernel",), "sax_pack": ("sax_pack_kernel",),
+                  "min_ed": ("min_ed_kernel", "min_ed_unpack_kernel"),
+                  "mindist": ("mindist_kernel",)}
 DEVICE_KERNELS["screen_select_quant"] = DEVICE_KERNELS["topk_ed"] = \
     DEVICE_KERNELS["screen_select"]
 TOPK_PASS_ROWS = 4096  # one kernel-backend pass
+# slates longer than one kernel pass (128 entries): the kernel phase's
+# screens at 200, topk_ed at 200 and 500; the served batch asked again at k
+# = 200 (a slate of 208 with the engine's slack)
+LONG_SLATES = (200, 500)
+G1_K = 200
+# min_ed: planted queries equal to a row that has a duplicate further on, so
+# the answer is the lower of two tied rows at a d2 of about 0 (or below)
+PLANTED = 4
+ODD_ROWS = TABLE_ROWS - 37  # not a whole number of the kernels' 128-row tiles
 # kernel backend: served (query batch, window) pairs asked again
 KERNEL_BACKEND_PAIRS = 16
 # rows whose PAA lies nearer a breakpoint than the f32 error of a segment
@@ -314,10 +347,7 @@ class TopkCase:
         pfull, pord = self.plain(self.n)
         torch.cuda.synchronize()
         pv, pi = pfull[:, : self.s], pord[:, : self.s]
-        d = self.q.shape[1]
-        qn = (self.q.double() ** 2).sum(1).sqrt()
-        xmax = float((self.x.double() ** 2).sum(1).max().sqrt())
-        tol = (2.0 * 4.0 * d * EPS32 * (qn + xmax) ** 2)[:, None]
+        tol = ed_bound(torch, self.q, self.x)[:, None]
         if ki.shape != pi.shape or bool((ki < 0).any()):
             fail(f"topk_ed: slate shape {tuple(ki.shape)} or empty slots")
         err = (kv.double() - pv.double()).abs()
@@ -382,6 +412,99 @@ class SummarizeCase:
             nbytes = (4 * b * cfg.n_segments * 2 + 4 * b * cfg.key_words
                       + 4 * self.bps.numel())
         return _bound(nbytes, 0.0)
+
+
+class MinEdCase:
+    """One min_ed call: queries against candidate rows taken in order, the
+    norms summed by the kernel itself."""
+
+    name = "min_ed"
+
+    def __init__(self, torch, ops, ref, q, x):
+        self.torch, self.ops, self.ref = torch, ops, ref
+        self.q, self.x, self.n = q, x, x.shape[0]
+
+    def kernel(self):
+        return self.ops.min_ed(self.q, self.x)
+
+    def plain(self):
+        return self.ref.min_ed_ref(self.q, self.x)
+
+    def library(self):
+        """The yardstick: norms, one addmm, one min (TF32 off)."""
+        xn2 = (self.x * self.x).sum(1)
+        return self.torch.addmm(xn2[None, :], self.q, self.x.T, alpha=-2.0).min(1)
+
+    def check(self):
+        """Hold the kernel against the plain version (topk_ed's bound: both
+        sum in f32, in other orders) and against topk_ed's k = 1 answer,
+        which is the same arithmetic and must be equal. Returns the largest
+        |delta d2|, its share of the bound, the ids swapped within the
+        bound and the kernel's answers."""
+        torch = self.torch
+        kv, ki = self.kernel()
+        tv, ti = self.ops.topk_ed(self.q, self.x, 1)
+        pfull, pord = self.ref.topk_ed_ref(self.q, self.x, self.n)
+        torch.cuda.synchronize()
+        pv, pi = pfull[:, 0], pord[:, 0]
+        tol = ed_bound(torch, self.q, self.x)
+        if ki.shape != pi.shape or bool((ki < 0).any()):
+            fail(f"min_ed: answer shape {tuple(ki.shape)} or empty answers")
+        if not (torch.equal(ki, ti[:, 0]) and torch.equal(kv, tv[:, 0])):
+            fail("min_ed: differs from topk_ed's k = 1 answer")
+        err = (kv.double() - pv.double()).abs()
+        d2 = torch.empty_like(pfull).scatter_(1, pord.long(), pfull)
+        picked = torch.gather(d2, 1, ki.long()[:, None])[:, 0].double()
+        differ = ki != pi
+        if bool((err > tol).any()):
+            fail(f"min_ed: |delta d2| {float(err.max()):.3e} beyond the bound "
+                 f"{float(tol.min()):.3e}")
+        if bool((differ & ((picked - pv.double()).abs() > tol)).any()):
+            fail(f"min_ed: {int(differ.sum())} ids differ beyond the bound")
+        return float(err.max()), float((err / tol).max()), int(differ.sum()), (kv, ki)
+
+    def bound(self):
+        """Each row and query read once, the answers written once; 2 m n d
+        flops of products and 2 n d of norms at the FP32 CUDA-core rate."""
+        m, d = self.q.shape
+        nbytes = 4 * self.n * d + 4 * m * d + 8 * m
+        return _bound(nbytes, 2.0 * m * self.n * d + 2.0 * self.n * d)
+
+
+class MindistCase:
+    """One mindist call: one query PAA against B regions."""
+
+    name = "mindist"
+
+    def __init__(self, torch, ops, ref, q_paa, lo, hi, cfg):
+        self.torch, self.ops, self.ref = torch, ops, ref
+        self.q, self.lo, self.hi, self.cfg = q_paa, lo, hi, cfg
+
+    def kernel(self):
+        return self.ops.mindist(self.q, self.lo, self.hi, self.cfg)
+
+    def plain(self):
+        return self.ref.mindist_ref(self.q, self.lo, self.hi, self.cfg.segment_len)
+
+    def library(self):
+        """The yardstick: clamp ops and one sum."""
+        d = self.torch.maximum((self.lo - self.q).clamp_min(0), (self.q - self.hi).clamp_min(0))
+        return (d * d).sum(1) * self.cfg.segment_len
+
+    def bound(self):
+        """Bound by bytes: lo and hi read once, the bounds written once; 4 w
+        flops a region (two differences, a square and a sum)."""
+        b, w = self.lo.shape
+        return _bound(8 * b * w + 4 * b + 4 * w, 4.0 * b * w)
+
+
+def ed_bound(torch, q, x):
+    """Per query, the bound on |delta d2| between two f32 evaluations of the
+    matmul-form squared ED in any order: 2 x 4 d u (|q| + |x|max)^2."""
+    d = q.shape[1]
+    qn = (q.double() ** 2).sum(1).sqrt()
+    xmax = float((x.double() ** 2).sum(1).max().sqrt())
+    return 2.0 * 4.0 * d * EPS32 * (qn + xmax) ** 2
 
 
 def _bound(nbytes, flops):
@@ -482,7 +605,7 @@ def phase_kernels(torch, ops, ref):
             q = xc[pick] + 0.01 * torch.randn((m, SERIES_LEN), generator=gen,
                                               device=dev)
             for layout, r in (("gather", rows), ("full", None)):
-                for s in (K + 8, ops.max_slate()):
+                for s in (K + 8, ops.pass_slate(), LONG_SLATES[0]):
                     case = Case(torch, ops, ref, q, table, scale, xn2, r, s)
                     err, share, ndiff = case.check()
                     worst[case.name] = max(worst[case.name], err)
@@ -499,8 +622,8 @@ def phase_kernels(torch, ops, ref):
 
 def phase_topk_kernels(torch, ops, ref, worst):
     """topk_ed against its plain version: a 4,096-row pass and the whole
-    2^20-row seismic table, batches of 16 and 64, slates of 13 and the
-    maximum."""
+    2^20-row seismic table, batches of 16 and 64, slates of 13, one pass
+    (128) and several passes (200, 500)."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(2)
     xc = seismic_table(torch, TABLE_ROWS, SERIES_LEN, gen, dev)
@@ -510,7 +633,7 @@ def phase_topk_kernels(torch, ops, ref, worst):
         pick = torch.randint(0, TABLE_ROWS, (m,), generator=gen, device=dev)
         q = xc[pick] + 0.01 * torch.randn((m, SERIES_LEN), generator=gen, device=dev)
         for layout, x in (("pass", one_pass), ("full", xc)):
-            for k in (K + 8, ops.max_slate()):
+            for k in (K + 8, ops.pass_slate(), *LONG_SLATES):
                 case = TopkCase(torch, ops, ref, q, x, k)
                 err, share, ndiff = case.check()
                 worst["topk_ed"] = max(worst["topk_ed"], err)
@@ -518,6 +641,37 @@ def phase_topk_kernels(torch, ops, ref, worst):
                     f"max|delta d2|={err:.3e} ({share:.2e} of the bound), "
                     f"{ndiff} ids swapped within the bound")
     del xc, one_pass
+
+
+def phase_min_ed_kernels(torch, ops, ref, worst):
+    """min_ed against its plain version and topk_ed's k = 1 answer on a
+    2^20-row seismic table, the whole table and an n that is not a tile
+    multiple, batches of 16 and 64. The first PLANTED queries equal a row
+    that has a duplicate further on: the answer must be the lower row, at a
+    d2 of about 0 (negative where |q|^2 + |x|^2 rounds below 2 q.x)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xc = seismic_table(torch, TABLE_ROWS, SERIES_LEN, gen, dev)
+    half = ODD_ROWS // 2
+    low = torch.randperm(half, generator=gen, device=dev)[:PLANTED]
+    xc[low + half] = xc[low]  # planted ties: row a + half duplicates row a
+    for m in BATCHES_M:
+        pick = torch.randint(0, TABLE_ROWS, (m,), generator=gen, device=dev)
+        q = xc[pick] + 0.01 * torch.randn((m, SERIES_LEN), generator=gen, device=dev)
+        q[:PLANTED] = xc[low]
+        for layout, x in (("full", xc), ("odd", xc[:ODD_ROWS])):
+            case = MinEdCase(torch, ops, ref, q.contiguous(), x)
+            err, share, ndiff, (kv, ki) = case.check()
+            worst["min_ed"] = max(worst["min_ed"], err)
+            if ki[:PLANTED].tolist() != low.tolist():
+                fail(f"min_ed m={m} {layout}: planted queries answered "
+                     f"{ki[:PLANTED].tolist()}, want the lower rows {low.tolist()}")
+            neg = int((kv[:PLANTED] < 0).sum())
+            log(f"kernels: min_ed f32 m={m} {layout} n={case.n}: max|delta d2|={err:.3e} "
+                f"({share:.2e} of the bound), {ndiff} ids swapped within the bound, "
+                f"= topk_ed k=1; planted ties won by the lower row ({neg} of "
+                f"{PLANTED} at a negative d2, d2 {[float(v) for v in kv[:PLANTED]]})")
+    del xc
 
 
 @contextlib.contextmanager
@@ -966,6 +1120,156 @@ def phase_adsplus(torch, ops, X_host, X, served, shapes):
     return launches, summary
 
 
+def phase_long_slates(torch, ops, kept):
+    """One served exact f32 batch asked again at k = G1_K, a slate longer
+    than one kernel pass, under backend="device" and "kernel": the ids must
+    equal the f64 brute force, and the tier must have launched its kernel
+    (counts set to 0 just before each call and read just after it)."""
+    out, X = kept
+    idx = out["index"]
+    b, t0b, t1b, qs, _ = out["served"][-1]
+    lo, hi = t0b * BATCH_SIZE, (t1b + 1) * BATCH_SIZE
+    summary, launches = {}, collections.Counter()
+    for backend, need in (("device", "screen_select"), ("kernel", "topk_ed")):
+        what = f"long slates: batch {b + 1} at k={G1_K} under {backend}"
+        got, dt, ln = timed_call(torch, ops, collections.Counter(), lambda: (
+            idx.window_knn_batch(qs, t0b, t1b, k=G1_K, backend=backend)))
+        if ln[need] == 0:
+            fail(f"{what}: never launched {need}")
+        check_exact(torch, X[lo:hi], qs, torch.from_numpy(got).to(DEVICE) - lo, what,
+                    k=G1_K)
+        launches.update(ln)
+        summary[backend] = {"ms_per_query": dt, "launches": {k: c for k, c in ln.items() if c}}
+        log(f"{what}: = f64 brute force, {dt:.4f} ms/query, launches "
+            f"{summary[backend]['launches']}")
+    return launches, summary
+
+
+def phase_history_1nn(torch, ops, kept):
+    """Exact 1-NN over the whole history: ops.min_ed of every served
+    16-query batch against all 1,024,000 raw series on the card. Every id
+    equals an f64 brute force (diff form, first minimum) except between
+    rows whose f64 distances lie within the f32 bound of each other
+    (counted); every answer equals topk_ed's k = 1. Returns the launches,
+    the summary and the f64 distances of the last batch's queries."""
+    import numpy as np
+
+    out, X = kept
+    served = out["served"]
+    Q = torch.from_numpy(np.stack([s[3] for s in served])).to(DEVICE)
+    ops.reset_launches()  # counts from 0 for this phase's own calls
+    t0 = time.perf_counter()
+    answers = [ops.min_ed(Q[j], X) for j in range(Q.shape[0])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if launches["min_ed"] == 0:
+        fail("1-NN: min_ed never launched")
+    Xd = X.double()
+    xmax = float((Xd ** 2).sum(1).max().sqrt())
+    near, worst_gap = 0, 0.0
+    for j, (kv, ki) in enumerate(answers):
+        tv, ti = ops.topk_ed(Q[j], X, 1)
+        if not (torch.equal(ki, ti[:, 0]) and torch.equal(kv, tv[:, 0])):
+            fail(f"1-NN batch {j + 1}: min_ed differs from topk_ed's k = 1 answer")
+        Qd = Q[j].double()
+        d2 = torch.stack([((Xd - Qd[i]) ** 2).sum(dim=1) for i in range(Qd.shape[0])])
+        want = d2.argmin(dim=1)
+        tol = 2.0 * 4.0 * SERIES_LEN * EPS32 * (Qd.norm(dim=1) + xmax) ** 2
+        gap = (torch.gather(d2, 1, ki.long()[:, None])[:, 0]
+               - torch.gather(d2, 1, want[:, None])[:, 0])
+        swapped = ki.long() != want
+        if bool((swapped & (gap > tol)).any()):
+            fail(f"1-NN batch {j + 1}: {int(swapped.sum())} ids differ from the f64 "
+                 "brute force beyond the bound")
+        near += int(swapped.sum())
+        worst_gap = max(worst_gap, float((gap / tol).max()))
+    del Xd
+    summary = {"queries": int(Q.shape[0] * Q.shape[1]), "rows": int(X.shape[0]),
+               "seconds": wall, "near_ties_swapped": near,
+               "max_gap_share_of_bound": worst_gap, "launches": launches["min_ed"]}
+    log(f"1-NN over the history: {summary['queries']} queries x {X.shape[0]} series in "
+        f"{wall:.4f}s ({launches['min_ed']} min_ed launches); ids = f64 brute force "
+        f"except {near} near-ties within the bound; = topk_ed k=1")
+    return launches, summary, d2
+
+
+def phase_pruning_front(torch, ops, ref, kept, ed2):
+    """The pruning front of exact search on the exact f32 index: the last
+    served batch's PAA from ops.paa on the card, then ops.mindist (a)
+    against the SAX region of every entry of the index's runs and (b)
+    against every block zone map. Values are bitwise the plain version's and
+    agree with the host's mindist_paa_sax2 / mindist_region2 (f64 sums) to
+    rtol 1e-5, and every
+    bound lies at or below the f64 squared ED (``ed2``, the 1-NN phase's
+    brute force of these queries) of its entry, or of every entry of its
+    block, up to f32 slack (rtol 1e-5). Returns launches, summary and the
+    timing case (the entries' regions)."""
+    import numpy as np
+
+    from repro_torch.core import SummarizationConfig
+    from repro_torch.core.lower_bounds import mindist_paa_sax2, mindist_region2
+    from repro_torch.core.summarization import sax_region
+
+    out, X = kept
+    qs = out["served"][-1][3]
+    cfg = SummarizationConfig(series_len=SERIES_LEN, n_segments=16, card_bits=8)
+    runs = out["index"].lsm.runs_newest_first()
+    sym = np.concatenate([r.sax for r in runs]).astype(np.int64)
+    ids = torch.from_numpy(np.concatenate([r.ids for r in runs])).to(DEVICE)
+    bmin = np.concatenate([r.bmin for r in runs]).astype(np.int64)
+    bmax = np.concatenate([r.bmax for r in runs]).astype(np.int64)
+    lo, hi = (torch.from_numpy(a).to(DEVICE) for a in sax_region(sym, cfg))
+    zlo = torch.from_numpy(sax_region(bmin, cfg)[0]).to(DEVICE)
+    zhi = torch.from_numpy(sax_region(bmax, cfg)[1]).to(DEVICE)
+    ops.reset_launches()  # counts from 0 for this phase's own calls
+    t0 = time.perf_counter()
+    qp = ops.paa(torch.from_numpy(qs).to(DEVICE), cfg)
+    entry_lb = [ops.mindist(qp[j], lo, hi, cfg) for j in range(qp.shape[0])]
+    zone_lb = [ops.mindist(qp[j], zlo, zhi, cfg) for j in range(qp.shape[0])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if launches["mindist"] == 0 or launches["paa"] == 0:
+        fail(f"pruning front: launches {launches}")
+    qp_host = qp.cpu().numpy()
+    pruned = 0
+    for j in range(qp.shape[0]):
+        what = f"pruning front query {j + 1}"
+        for name, got, want, a, b in (
+                ("entries", entry_lb[j], mindist_paa_sax2(qp_host[j], sym, cfg), lo, hi),
+                ("zone maps", zone_lb[j], mindist_region2(qp_host[j], bmin, bmax, cfg),
+                 zlo, zhi)):
+            plain = ref.mindist_ref(qp[j], a, b, cfg.segment_len)
+            if not torch.equal(got.view(torch.int32), plain.view(torch.int32)):
+                fail(f"{what}: {name} bounds differ from the plain version's bits")
+            want = torch.from_numpy(want).to(DEVICE).double()
+            if bool(((got.double() - want).abs() > 1e-5 * want.abs()).any()):
+                fail(f"{what}: {name} bounds differ from the host's beyond rtol 1e-5")
+        ed = ed2[j][ids.long()]
+        if bool((entry_lb[j].double() > ed * (1 + 1e-5)).any()):
+            fail(f"{what}: an entry's bound exceeds its squared ED")
+        pruned += int((entry_lb[j].double() > ed.min()).sum())
+        start = 0
+        for run, zl in zip(runs, torch.split(zone_lb[j], [r.n_blocks for r in runs])):
+            seg = ed[start:start + run.n]
+            start += run.n
+            pad = run.n_blocks * run.block_size - run.n
+            blk = torch.cat([seg, seg.new_full((pad,), math.inf)]).view(
+                run.n_blocks, run.block_size).min(1).values
+            if bool((zl.double() > blk * (1 + 1e-5)).any()):
+                fail(f"{what}: a zone map's bound exceeds its block's least squared ED")
+    summary = {"entries": int(lo.shape[0]), "blocks": int(zlo.shape[0]), "runs": len(runs),
+               "queries": int(qp.shape[0]), "seconds": wall,
+               "entries_above_the_1nn": pruned / qp.shape[0],
+               "launches": {k: c for k, c in launches.items() if c}}
+    log(f"pruning front: {summary['queries']} queries x {summary['entries']} entries and "
+        f"{summary['blocks']} zone maps of {len(runs)} runs in {wall:.4f}s; = host bounds "
+        f"(rtol 1e-5), every bound <= its f64 ED; {pruned / qp.shape[0]:.0f} entries a "
+        f"query bound above its 1-NN distance (pruned); launches {summary['launches']}")
+    return launches, summary, MindistCase(torch, ops, ref, qp[0].contiguous(), lo, hi, cfg)
+
+
 def percentile(a, p):
     import numpy as np
 
@@ -986,6 +1290,19 @@ def check_exact(torch, Xw, qs, got, what, k=K):
         tie = torch.gather(d2, 1, got.clamp_min(0)) == torch.gather(d2, 1, want)
         if bool((bad & ~tie).any()):
             fail(f"{what}: {int(bad.sum())} served ids differ from the brute force")
+
+
+def timed_entry(torch, case, shape, err, what=""):
+    """Time one kernel case (kernel, call, plain, library, bound), log it
+    and return its entry of the kernels line."""
+    t = time_case(torch, case)
+    bound_ms, bound_by = case.bound()
+    log(f"timing: {case.name} at {what}{shape}: " + timing_text(t, bound_ms, bound_by)
+        + f", max|error|={err:.3e}")
+    return {"name": case.name, "route": "cuda", "source": SOURCES[case.name],
+            "replaces": REPLACES[case.name], "ms": t["ms"], "call_ms": t["call_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": t["library_ms"], "shape": shape}
 
 
 def phase_timing(torch, ops, ref, shapes, worst):
@@ -1009,18 +1326,10 @@ def phase_timing(torch, ops, ref, shapes, worst):
         case = Case(torch, ops, ref, q.contiguous(), table, scale, xn2, rows, s)
         err, share, _ = case.check()
         worst[name] = max(worst[name], err)
-        t = time_case(torch, case)
-        bound_ms, bound_by = case.bound()
-        log(f"timing: {name} at the main path's shape m={m} n={n} table={cap} "
-            f"{dtype} s={s} {'gather' if gathered else 'full'} ({count} calls): "
-            + timing_text(t, bound_ms, bound_by) + f", max|delta d2|={err:.3e}")
-        entries.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                        "replaces": REPLACES[name], "ms": t["ms"],
-                        "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": t["library_ms"],
-                        "shape": {"m": m, "n": n, "table_rows": cap, "d": SERIES_LEN,
-                                  "dtype": dtype, "s": s, "gather": gathered}})
+        entries.append(timed_entry(
+            torch, case, {"m": m, "n": n, "table_rows": cap, "d": SERIES_LEN,
+                          "dtype": dtype, "s": s, "gather": gathered},
+            err, f"the main path's shape ({count} calls) "))
         del table, scale, xn2, rows, case
         torch.cuda.empty_cache()
     for name in ("topk_ed", "paa", "sax_pack"):
@@ -1031,15 +1340,8 @@ def phase_timing(torch, ops, ref, shapes, worst):
         case, shape = new_kernel_case(torch, ops, ref, key, gen)
         err = case_error(torch, case)
         worst[name] = max(worst[name], err)
-        t = time_case(torch, case)
-        bound_ms, bound_by = case.bound()
-        log(f"timing: {name} at the main path's shape {shape} ({count} calls): "
-            + timing_text(t, bound_ms, bound_by) + f", max|error|={err:.3e}")
-        entries.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                        "replaces": REPLACES[name], "ms": t["ms"],
-                        "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": t["library_ms"], "shape": shape})
+        entries.append(timed_entry(torch, case, shape, err,
+                                   f"the main path's shape ({count} calls) "))
         if name != "topk_ed":  # and over the whole seismic set
             big = ("paa", BATCHES * BATCH_SIZE, SERIES_LEN, 16) if name == "paa" \
                 else ("sax_pack", BATCHES * BATCH_SIZE, 16, 8)
@@ -1048,6 +1350,36 @@ def phase_timing(torch, ops, ref, shapes, worst):
                 + timing_text(time_case(torch, case, 20), *case.bound()))
         del case
         torch.cuda.empty_cache()
+    return entries
+
+
+def time_history_kernels(torch, ops, ref, kept, lb_case, worst):
+    """min_ed at the 1-NN phase's shape (one served 16-query batch against
+    the 1,024,000 series; and 64 queries, logged) and mindist at the
+    pruning front's (one query against every entry's region). Returns
+    their entries of the kernels line."""
+    import numpy as np
+
+    out, X = kept
+    served = out["served"]
+    entries = []
+    for m in (16, 64):
+        q = torch.from_numpy(np.concatenate([s[3] for s in served[-(m // QUERY_BATCH):]]))
+        case = MinEdCase(torch, ops, ref, q.to(DEVICE).contiguous(), X)
+        err = case.check()[0]
+        worst["min_ed"] = max(worst["min_ed"], err)
+        entry = timed_entry(torch, case, {"m": m, "n": int(X.shape[0]), "d": SERIES_LEN},
+                            err, "the 1-NN phase's shape " if m == 16 else "")
+        if m == QUERY_BATCH:
+            entries.append(entry)
+    got, want = lb_case.kernel(), lb_case.plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail("mindist: the timing case differs from the plain version's bits")
+    worst["mindist"] = max(worst["mindist"], float((got - want).abs().max()))
+    b, w = lb_case.lo.shape
+    entries.append(timed_entry(torch, lb_case, {"b": int(b), "w": int(w)},
+                               worst["mindist"], "the pruning front's shape "))
     return entries
 
 
@@ -1116,6 +1448,7 @@ def main() -> int:
 
     worst = phase_kernels(torch, ops, ref)
     phase_topk_kernels(torch, ops, ref, worst)
+    phase_min_ed_kernels(torch, ops, ref, worst)
     engine = get_engine(DEVICE)
     shapes = collections.Counter()
     launches = collections.Counter()
@@ -1135,6 +1468,14 @@ def main() -> int:
         torch, ops, ref, out["served"][-1][3], scfg, "summarize: a query batch")
     got, summary["kernel-backend"] = phase_kernel_backend(torch, ops, kept, shapes)
     launches.update(got)
+    got, summary["long-slates"] = phase_long_slates(torch, ops, kept)
+    launches.update(got)
+    got, summary["history-1nn"], ed2 = phase_history_1nn(torch, ops, kept)
+    launches.update(got)
+    got, summary["pruning-front"], lb_case = phase_pruning_front(torch, ops, ref, kept, ed2)
+    launches.update(got)
+    history_entries = time_history_kernels(torch, ops, ref, kept, lb_case, worst)
+    del ed2, lb_case
     got, summary["adsplus"] = phase_adsplus(torch, ops, X_host, X, out["served"],
                                             shapes)
     launches.update({n: c for n, c in got.items() if n == "topk_ed"})
@@ -1149,7 +1490,7 @@ def main() -> int:
     launches.update(got)
     for key, c in shapes.most_common(16):
         log(f"main path: call {key} x{c}")
-    entries = phase_timing(torch, ops, ref, shapes, worst)
+    entries = phase_timing(torch, ops, ref, shapes, worst) + history_entries
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["max_abs_err"] = worst[e["name"]]

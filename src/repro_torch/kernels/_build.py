@@ -19,7 +19,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "screen_select.cu", CSRC / "summarize.cu")
+SOURCES = (CSRC / "screen_select.cu", CSRC / "summarize.cu", CSRC / "lower_bound.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -33,16 +33,20 @@ LAYOUT: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "coconut_layout": ([_P], None),
     "coconut_screen_select": (
-        [_I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
+        [_I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
     "coconut_screen_select_quant": (
-        [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
-    "coconut_topk_ed": ([_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
+        [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "coconut_topk_ed": (
+        [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "coconut_min_ed": ([_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P], _I),
     "coconut_summarize_layout": ([_P], None),
     "coconut_paa": ([_P, _I, _I, _I, _P, _P], _I),
     "coconut_sax_pack": ([_P, _I, _I, _P, _I, _I, _I, _P, _P, _P], _I),
+    "coconut_mindist": ([_P, _P, _P, _I, _I, _F, _I, _P, _P], _I),
 }
 
 
@@ -110,7 +114,7 @@ def library() -> ctypes.CDLL:
             fn.restype = restype
         out = (ctypes.c_int * 3)()
         lib.coconut_layout(out)
-        LAYOUT.update(max_slate=out[0], query_block=out[1], tile=out[2])
+        LAYOUT.update(pass_slate=out[0], query_block=out[1], tile=out[2])
         lib.coconut_summarize_layout(out)
         LAYOUT.update(paa_row_floats=out[0], max_key_words=out[1],
                       max_breakpoints=out[2])
@@ -120,8 +124,9 @@ def library() -> ctypes.CDLL:
 
 def layout() -> dict:
     """The kernels' launch layout as the built library defines it:
-    ``max_slate``, ``query_block`` (queries per block) and ``tile``
-    (candidates per tile) of the screen and top-k kernels;
+    ``pass_slate`` (the most slate entries one pass holds; longer slates
+    take several passes), ``query_block`` (queries per block) and ``tile``
+    (candidates per tile) of the screen, top-k and min kernels;
     ``paa_row_floats`` (the most floats of one padded row the PAA kernel
     stages), ``max_key_words`` and ``max_breakpoints`` of SAX-pack."""
     library()

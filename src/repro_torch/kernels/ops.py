@@ -1,8 +1,9 @@
 """Public wrappers around the hand-written kernels.
 
 Dispatch follows the device of the tensors: a CUDA tensor goes to the CUDA
-kernel (``csrc/screen_select.cu`` for the screens and ``topk_ed``,
-``csrc/summarize.cu`` for ``paa`` and ``sax_pack``; built on first use by
+kernel (``csrc/screen_select.cu`` for the screens, ``topk_ed`` and
+``min_ed``, ``csrc/summarize.cu`` for ``paa`` and ``sax_pack``,
+``csrc/lower_bound.cu`` for ``mindist``; built on first use by
 :mod:`._build`) or the call raises; a CPU tensor goes to the plain PyTorch
 version in :mod:`.ref`. There is no fallback from one to the other.
 
@@ -15,10 +16,13 @@ Contract (the reference's ``kernels.ops`` wrappers): the screen is
 ``|x|^2`` from the rows), the slate is the top-k in lexicographic (d2,
 candidate) order, slots that no candidate can fill come back as
 ``(inf, -1)``, ``k > n`` pads the tail that way, and an empty batch returns
-without a launch. The reference zero-pads ``d`` to a multiple of 128 for the
-TPU's lanes and pads candidate counts to power-of-two buckets for its jit
-cache; the CUDA kernels take any ``d`` and ``n``, so neither padding is
-made, and the results are those of an unpadded launch.
+without a launch. A slate has no cap: one kernel pass holds
+``pass_slate()`` entries, and a longer slate is taken in passes
+(:func:`slate_in_passes`), each pass a launch. The reference zero-pads
+``d`` to a multiple of 128 for the TPU's lanes and pads candidate counts to
+power-of-two buckets for its jit cache; the CUDA kernels take any ``d`` and
+``n``, so neither padding is made, and the results are those of an
+unpadded launch.
 
 The summarize front (``paa`` -> ``sax_and_keys``) returns sortable keys as
 int64 tensors holding the uint32 word values (torch has no ``<<`` for uint32
@@ -43,7 +47,7 @@ BIG_NORM2 = 1e30
 
 # launches of each CUDA kernel since the last reset
 LAUNCHES = {"screen_select": 0, "screen_select_quant": 0, "topk_ed": 0,
-            "paa": 0, "sax_pack": 0}
+            "paa": 0, "sax_pack": 0, "min_ed": 0, "mindist": 0}
 
 _SM_COUNT: dict = {}
 _BREAKPOINTS: dict = {}  # (card_bits, device) -> breakpoint_table
@@ -54,12 +58,12 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def max_slate() -> int:
-    """The largest slate (k) the CUDA kernels hold, as the built library
-    defines it; the wrappers refuse more on a CUDA tensor."""
+def pass_slate() -> int:
+    """The most slate entries one pass of the CUDA slate kernels holds, as
+    the built library defines it; a longer slate takes several passes."""
     from . import _build
 
-    return _build.layout()["max_slate"]
+    return _build.layout()["pass_slate"]
 
 
 def candidate_bucket(e: int, min_bucket: int = 64) -> int:
@@ -154,52 +158,80 @@ def _screen(name: str, q, x, scale, xn2, k: int, rows):
     return _launch(name, q, x, scale, xn2, k, kk, rows, n)
 
 
+def slate_in_passes(step, kk: int, width: int):
+    """The top-``kk`` slate in passes of at most ``width`` entries.
+
+    ``step(s, floor)`` returns ((m, s) d2, (m, s) ids, (m,) |q|^2): the
+    first ``s`` entries lexicographically after ``floor`` ((m,) d2 and (m,)
+    ids of the previous pass's last entry; None for the first pass). The
+    passes are concatenated. This is the one-shot slate exactly, because
+    (d2, position) is a strict total order and a candidate's d2 is the same
+    arithmetic in every pass."""
+    vals, idxs, qn2, floor = [], [], None, None
+    for start in range(0, kk, width):
+        v, i, q2 = step(min(width, kk - start), floor)
+        qn2 = q2 if qn2 is None else qn2
+        vals.append(v)
+        idxs.append(i)
+        floor = (v[:, -1].contiguous(), i[:, -1].contiguous())
+    if len(vals) == 1:
+        return vals[0], idxs[0], qn2
+    return torch.cat(vals, dim=1), torch.cat(idxs, dim=1), qn2
+
+
 def _launch(name, q, x, scale, xn2, k, kk, rows, n):
     """The CUDA kernels of screen_select, screen_select_quant and topk_ed:
-    partial slates over candidate splits, then a merge."""
+    partial slates over candidate splits, then a merge; in passes of
+    ``pass_slate`` entries where the slate is longer."""
     from . import _build  # builds the library on first use
 
     layout = _build.layout()
-    if kk > layout["max_slate"]:
-        raise ValueError(f"slate of {kk} exceeds the kernels' maximum "
-                         f"{layout['max_slate']}")
     for t, what in ((x, "x"), (xn2, "xn2"), (scale, "scale")):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
+    if name == "screen_select":
+        code = {torch.float32: 0, torch.bfloat16: 1}.get(x.dtype)
+        if code is None:
+            raise TypeError(f"screen_select takes f32 or bf16 tables, not {x.dtype}")
+    elif name == "screen_select_quant" and x.dtype != torch.int8:
+        raise TypeError(f"screen_select_quant takes int8 tables, not {x.dtype}")
     dev = q.device
     q = q.contiguous()
     m, d = q.shape
     if rows is not None:
         rows = rows.to(device=dev, dtype=torch.int32, non_blocking=True).contiguous()
-    chunk, n_splits = _splits(dev, n, m, kk, layout)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    part_v = torch.empty((m, n_splits, kk), **f32)
-    part_i = torch.empty((m, n_splits, kk), **i32)
     qn2 = torch.empty((m,), **f32)
-    out_v = torch.empty((m, kk), **f32)
-    out_i = torch.empty((m, kk), **i32)
     stream = _stream(dev)
     rows_ptr = None if rows is None else rows.data_ptr()
     lib = _build.library()
-    tail = (rows_ptr, n, kk, chunk, n_splits, part_v.data_ptr(), part_i.data_ptr(),
-            qn2.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
-    if name == "topk_ed":
-        rc = lib.coconut_topk_ed(q.data_ptr(), m, d, x.data_ptr(), *tail[1:])
-    elif name == "screen_select":
-        code = {torch.float32: 0, torch.bfloat16: 1}.get(x.dtype)
-        if code is None:
-            raise TypeError(f"screen_select takes f32 or bf16 tables, not {x.dtype}")
-        rc = lib.coconut_screen_select(code, q.data_ptr(), m, d, x.data_ptr(),
-                                       xn2.data_ptr(), *tail)
-    else:
-        if x.dtype != torch.int8:
-            raise TypeError(f"screen_select_quant takes int8 tables, not {x.dtype}")
-        rc = lib.coconut_screen_select_quant(q.data_ptr(), m, d, x.data_ptr(),
-                                             scale.data_ptr(), xn2.data_ptr(), *tail)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
+
+    def one_pass(s, floor):
+        chunk, n_splits = _splits(dev, n, m, s, layout)
+        part_v = torch.empty((m, n_splits, s), **f32)
+        part_i = torch.empty((m, n_splits, s), **i32)
+        out_v = torch.empty((m, s), **f32)
+        out_i = torch.empty((m, s), **i32)
+        fv, fi = (None, None) if floor is None else (floor[0].data_ptr(),
+                                                     floor[1].data_ptr())
+        tail = (rows_ptr, n, s, chunk, n_splits, fv, fi, part_v.data_ptr(),
+                part_i.data_ptr(), qn2.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+                stream)
+        if name == "topk_ed":
+            rc = lib.coconut_topk_ed(q.data_ptr(), m, d, x.data_ptr(), *tail[1:])
+        elif name == "screen_select":
+            rc = lib.coconut_screen_select(code, q.data_ptr(), m, d, x.data_ptr(),
+                                           xn2.data_ptr(), *tail)
+        else:
+            rc = lib.coconut_screen_select_quant(q.data_ptr(), m, d, x.data_ptr(),
+                                                 scale.data_ptr(), xn2.data_ptr(), *tail)
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+        LAUNCHES[name] += 1
+        return out_v, out_i, qn2
+
+    out_v, out_i, qn2 = slate_in_passes(one_pass, kk, layout["pass_slate"])
     vals, idxs = _finish(out_v, out_i, n, k)
     return vals, idxs, qn2
 
@@ -292,6 +324,43 @@ def topk_ed_bucketed(q: torch.Tensor, x: torch.Tensor,
     return v.cpu().numpy(), i.cpu().numpy().astype(np.int64)
 
 
+def min_ed(q: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-query minimum squared ED over the candidate rows, and its row.
+
+    q: (m, d) f32, x: (n, d) f32 -> ((m,) f32, (m,) int32). The kernel sums
+    ``|x|^2`` from the rows it reads, as :func:`topk_ed` does, and answers
+    with the first entry of the same lexicographic (d2, row) order: a tie
+    keeps the lower row. An empty batch gives empty outputs and no
+    candidates (inf, -1), both without a launch."""
+    dev = _check_pair(q, x)
+    m, n = q.shape[0], x.shape[0]
+    if m == 0:
+        return (torch.zeros((0,), dtype=torch.float32, device=dev),
+                torch.zeros((0,), dtype=torch.int32, device=dev))
+    if n == 0:
+        return (torch.full((m,), math.inf, dtype=torch.float32, device=dev),
+                torch.full((m,), -1, dtype=torch.int32, device=dev))
+    if dev.type == "cpu":
+        return ref.min_ed_ref(q, x)
+    if dev.type != "cuda":
+        raise ValueError(f"no min_ed for device {dev}")
+    from . import _build
+
+    layout = _build.layout()
+    q, x = q.contiguous(), x.contiguous()
+    chunk, n_splits = _splits(dev, n, m, 1, layout)
+    best = torch.empty((m,), dtype=torch.int64, device=dev)  # 64-bit (d2, row) keys
+    out_v = torch.empty((m,), dtype=torch.float32, device=dev)
+    out_i = torch.empty((m,), dtype=torch.int32, device=dev)
+    rc = _build.library().coconut_min_ed(q.data_ptr(), m, q.shape[1], x.data_ptr(), n,
+                                         chunk, n_splits, best.data_ptr(), out_v.data_ptr(),
+                                         out_i.data_ptr(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"min_ed kernel launch failed with CUDA error {rc}")
+    LAUNCHES["min_ed"] += 1
+    return out_v, out_i
+
+
 # ---------------------------------------------------------------------------
 # the summarize front: PAA -> SAX symbols -> interleaved sortable keys
 # ---------------------------------------------------------------------------
@@ -381,3 +450,42 @@ def summarize(x: torch.Tensor, cfg: SummarizationConfig
 def keys_to_host(keys: torch.Tensor) -> np.ndarray:
     """Sortable keys held in int64 -> the host index's numpy uint32 words."""
     return keys.cpu().numpy().astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# the pruning front: MINDIST_PAA_SAX lower bounds
+# ---------------------------------------------------------------------------
+def mindist(q_paa: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+            cfg: SummarizationConfig) -> torch.Tensor:
+    """Squared MINDIST_PAA_SAX lower bounds of one query PAA (w,) against B
+    regions lo/hi (B, w), all f32 -> (B,) f32: ``seg_len * sum_s max(lo -
+    q, q - hi, 0)^2``, the segments added left to right. An empty batch
+    returns without a launch."""
+    if q_paa.dim() != 1 or lo.dim() != 2 or lo.shape != hi.shape or \
+            lo.shape[1] != q_paa.shape[0]:
+        raise ValueError(f"shape mismatch: q_paa {tuple(q_paa.shape)}, lo "
+                         f"{tuple(lo.shape)}, hi {tuple(hi.shape)}")
+    if {q_paa.dtype, lo.dtype, hi.dtype} != {torch.float32}:
+        raise TypeError("q_paa, lo and hi must be float32")
+    devices = {q_paa.device, lo.device, hi.device}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev, (b, w) = lo.device, lo.shape
+    if b == 0:  # empty batch: no launch
+        return torch.zeros((0,), dtype=torch.float32, device=dev)
+    if dev.type == "cpu":
+        return ref.mindist_ref(q_paa, lo, hi, cfg.segment_len)
+    if dev.type != "cuda":
+        raise ValueError(f"no mindist for device {dev}")
+    from . import _build
+
+    q_paa, lo, hi = q_paa.contiguous(), lo.contiguous(), hi.contiguous()
+    vec = int(w % 4 == 0 and lo.data_ptr() % 16 == 0 and hi.data_ptr() % 16 == 0)
+    out = torch.empty((b,), dtype=torch.float32, device=dev)
+    rc = _build.library().coconut_mindist(q_paa.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                                          b, w, float(cfg.segment_len), vec,
+                                          out.data_ptr(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"mindist kernel launch failed with CUDA error {rc}")
+    LAUNCHES["mindist"] += 1
+    return out

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card: each held against its plain PyTorch version,
-and the engine's answers held to the CPU's. Every test here needs an NVIDIA
+and the engine's answers held to the CPU's (slates beyond one kernel pass
+included). Every test here needs an NVIDIA
 card and the CUDA toolkit, carries the ``cuda`` marker and skips without a
 card. Nothing here imports JAX, so the machine with the card runs it:
 
@@ -88,10 +89,14 @@ def test_cuda_kernel_pads_and_ties(cuda):
     v, i, _ = ops.screen_select(q, x, xn2, 6, rows=rows)
     assert i.tolist() == [[0, 3, 1, 2, -1, -1]] * 3
     assert torch.isinf(v[:, 4:]).all()
-    n = ops.max_slate() + 8
-    with pytest.raises(ValueError, match="maximum"):
-        ops.screen_select(q, torch.zeros((n, 32), device=cuda),
-                          torch.zeros(n, device=cuda), ops.max_slate() + 1)
+    # one entry past a pass: a second pass continues after the first's ties
+    n = ops.pass_slate() + 8
+    ops.reset_launches()
+    v, i, _ = ops.screen_select(q, torch.zeros((n, 32), device=cuda),
+                                torch.zeros(n, device=cuda), ops.pass_slate() + 1)
+    assert ops.LAUNCHES["screen_select"] == 2
+    assert i.tolist() == [list(range(ops.pass_slate() + 1))] * 3
+    assert (v == 0).all()
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
@@ -150,10 +155,11 @@ def test_cuda_topk_ed_ties_empty_and_cap(cuda):
     v, i = ops.topk_ed(torch.zeros((2, 8), device=cuda), torch.zeros((0, 8), device=cuda), 3)
     assert torch.isinf(v).all() and (i == -1).all()
     assert ops.LAUNCHES["topk_ed"] == 0  # empty batches launch nothing
-    n = ops.max_slate() + 8
-    with pytest.raises(ValueError, match="maximum"):
-        ops.topk_ed(torch.zeros((2, 8), device=cuda), torch.zeros((n, 8), device=cuda),
-                    ops.max_slate() + 1)
+    n = ops.pass_slate() + 8
+    v, i = ops.topk_ed(torch.zeros((2, 8), device=cuda), torch.zeros((n, 8), device=cuda),
+                       ops.pass_slate() + 1)
+    assert ops.LAUNCHES["topk_ed"] == 2  # a slate one past a pass takes two
+    assert i.tolist() == [list(range(ops.pass_slate() + 1))] * 2
 
 
 @pytest.mark.parametrize("b,n,w,c", [(1000, 256, 16, 8), (257, 96, 12, 6),
@@ -214,3 +220,139 @@ def test_kernel_backend_answers_do_not_depend_on_the_device(cuda):
     for a, b in zip(*out):
         np.testing.assert_array_equal(a[1], b[1])
         np.testing.assert_array_equal(a[0], b[0])
+
+
+# ---------------------------------------------------------------------------
+# slates beyond one kernel pass, min_ed and mindist
+# ---------------------------------------------------------------------------
+def _hold_slate(v, i, pfull, pord, k, tol):
+    """Values within ``tol`` of the plain slate; ids equal except between
+    near-tied candidates, whose plain distances must then agree."""
+    pv = pfull[:, :k]
+    np.testing.assert_allclose(v.cpu().numpy(), pv.cpu().numpy(), rtol=1e-5, atol=tol)
+    d2 = torch.empty_like(pfull).scatter_(1, pord.long(), pfull)
+    picked = torch.gather(d2, 1, i.long())
+    np.testing.assert_allclose(picked.cpu().numpy(), pv.cpu().numpy(), rtol=1e-5, atol=tol)
+
+
+@pytest.mark.parametrize("k", [200, 500])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8", "topk_ed"])
+def test_cuda_slates_beyond_one_pass_match_plain(cuda, kind, k):
+    rng = np.random.default_rng(6)
+    m, n, d = 16, 3001, 128
+    q = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(cuda)
+    xf = rng.standard_normal((n, d)).astype(np.float32)
+    xf[1::97] = xf[0]  # exact ties across the pass boundaries
+    ops.reset_launches()
+    if kind == "int8":
+        x, scale, xn2 = (torch.from_numpy(a).to(cuda) for a in _quantize(xf))
+        v, i, _ = ops.screen_select_quant(q, x, scale, xn2, k)
+        pfull, pord, _ = ref.screen_select_quant_ref(q, x, scale, xn2, n)
+        name = "screen_select_quant"
+    elif kind == "topk_ed":
+        x = torch.from_numpy(xf).to(cuda)
+        xn2 = (x * x).sum(-1)
+        v, i = ops.topk_ed(q, x, k)
+        pfull, pord = ref.topk_ed_ref(q, x, n)
+        name = "topk_ed"
+    else:
+        x = torch.from_numpy(xf).to(cuda)
+        if kind == "bf16":
+            x = x.to(torch.bfloat16)
+        xn2 = (x.float() * x.float()).sum(-1)
+        v, i, _ = ops.screen_select(q, x, xn2, k)
+        pfull, pord, _ = ref.screen_select_ref(q, x, xn2, n)
+        name = "screen_select"
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == -(-k // ops.pass_slate())
+    assert v.shape == i.shape == (m, k) and (i >= 0).all()
+    assert (i.long().sort(1).values.diff(1) > 0).all()  # no candidate twice
+    _hold_slate(v, i, pfull, pord, k, 1e-5 * float((q * q).sum(-1).max() + xn2.max()))
+
+
+@pytest.mark.parametrize("m,n,d", [(16, 100003, 256), (64, 4097, 96), (5, 1, 32),
+                                   (3, 130, 200)])
+def test_cuda_min_ed_matches_plain(cuda, m, n, d):
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(cuda)
+    q[0] = x[n // 2]  # a query equal to a row: d2 near 0, maybe below
+    ops.reset_launches()
+    v, i = ops.min_ed(q, x)
+    tv, ti = ops.topk_ed(q, x, 1)
+    pfull, pord = ref.topk_ed_ref(q, x, n)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["min_ed"] == 1
+    assert v.shape == i.shape == (m,) and i.dtype == torch.int32
+    # the same arithmetic as topk_ed: its k = 1 answer, bit for bit
+    assert torch.equal(i, ti[:, 0]) and torch.equal(v, tv[:, 0])
+    tol = 1e-5 * float((q * q).sum(-1).max() + (x * x).sum(-1).max())
+    _hold_slate(v[:, None], i[:, None], pfull, pord, 1, tol)
+    assert int(i[0]) == n // 2 and abs(float(v[0])) < tol
+
+
+def test_cuda_min_ed_ties_negative_zero_and_empty(cuda):
+    x = torch.randn((32, 64), device=cuda).repeat(3, 1)  # row j == j + 32 == j + 64
+    q = x[[40, 70, 5]].clone()  # each equals three rows: the lowest must win
+    v, i = ops.min_ed(q, x)
+    assert i.tolist() == [8, 6, 5]
+    # every d2 exactly 0 (and -0.0 from 0 - 0 must not beat +0.0): row 0
+    v, i = ops.min_ed(torch.zeros((3, 16), device=cuda), torch.zeros((40, 16), device=cuda))
+    assert i.tolist() == [0, 0, 0] and (v == 0).all()
+    ops.reset_launches()
+    v, i = ops.min_ed(torch.zeros((0, 8), device=cuda), torch.zeros((5, 8), device=cuda))
+    assert v.shape == i.shape == (0,)
+    v, i = ops.min_ed(torch.zeros((2, 8), device=cuda), torch.zeros((0, 8), device=cuda))
+    assert torch.isinf(v).all() and (i == -1).all()
+    assert ops.LAUNCHES["min_ed"] == 0  # empty batches launch nothing
+
+
+@pytest.mark.parametrize("b,w,c", [(100003, 16, 8), (4097, 8, 4), (513, 6, 5)])
+def test_cuda_mindist_matches_plain_bitwise(cuda, b, w, c):
+    from repro_torch.core import summarization
+
+    cfg = summarization.SummarizationConfig(series_len=w * 8, n_segments=w, card_bits=c)
+    rng = np.random.default_rng(8)
+    lo, hi = summarization.sax_region(rng.integers(0, 2 ** c, (b, w)), cfg)
+    lo, hi = torch.from_numpy(lo).to(cuda), torch.from_numpy(hi).to(cuda)
+    qp = torch.from_numpy(rng.standard_normal(w).astype(np.float32)).to(cuda)
+    ops.reset_launches()
+    out = ops.mindist(qp, lo, hi, cfg)
+    # a view that starts one row in: not 16-byte aligned when w % 4 != 0
+    tail = ops.mindist(qp, lo[1:], hi[1:], cfg)
+    want = ref.mindist_ref(qp, lo, hi, cfg.segment_len)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["mindist"] == 2
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(tail.view(torch.int32), want[1:].view(torch.int32))
+    ops.reset_launches()
+    assert ops.mindist(qp, lo[:0], hi[:0], cfg).shape == (0,)
+    assert ops.LAUNCHES["mindist"] == 0
+
+
+@pytest.mark.parametrize("backend", ["device", "kernel"])
+def test_knn_batch_beyond_one_pass_does_not_depend_on_the_device(cuda, backend):
+    """k = 200 asks the engine for a slate of 208 (k + its slack of 8), two
+    kernel passes: the answers equal the CPU's, through a kernel launch."""
+    from repro_torch.core import CTree, CTreeConfig, RawStore, SummarizationConfig
+
+    rng = np.random.default_rng(9)
+    X = rng.standard_normal((6000, 128)).astype(np.float32).cumsum(axis=1)
+    Q = rng.standard_normal((16, 128)).astype(np.float32).cumsum(axis=1)
+    scfg = SummarizationConfig(series_len=128, n_segments=16, card_bits=8)
+    out = []
+    for dev in ("cpu", "cuda"):
+        raw = RawStore(128, device=dev)
+        ids = raw.append(X)
+        ct = CTree(CTreeConfig(summarization=scfg, block_size=256, device=dev))
+        ct.bulk_build(X, ids)
+        ops.reset_launches()
+        out.append(ct.knn_batch(Q, k=200, raw=raw, backend=backend))
+        if dev == "cuda":
+            name = "topk_ed" if backend == "kernel" else "screen_select"
+            assert ops.LAUNCHES[name] > 0
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    d2 = ((X[None].astype(np.float64) - Q[:, None]) ** 2).sum(-1)
+    want = np.argsort(d2, axis=1, kind="stable")[:, :200]
+    np.testing.assert_array_equal(out[1][1], want)

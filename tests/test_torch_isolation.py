@@ -102,6 +102,10 @@ def test_only_cpu_tensors_run_the_plain_versions(no_card):
     for fn, a in ((ops.paa, x), (ops.sax_and_keys, torch.zeros((4, 4), device="meta"))):
         with pytest.raises(ValueError):
             fn(a, cfg)
+    with pytest.raises(ValueError):
+        ops.min_ed(q.to("meta"), x)
+    with pytest.raises(ValueError):
+        ops.mindist(torch.zeros(4, device="meta"), x[:, :4], x[:, :4], cfg)
 
 
 def test_every_kernel_source_is_built():
@@ -112,4 +116,4 @@ def test_every_kernel_source_is_built():
     assert sorted(p.name for p in _build.SOURCES) == sorted(
         p.name for p in (PKG / "kernels" / "csrc").glob("*.cu"))
     assert set(ops.LAUNCHES) == {"screen_select", "screen_select_quant",
-                                 "topk_ed", "paa", "sax_pack"}
+                                 "topk_ed", "paa", "sax_pack", "min_ed", "mindist"}

@@ -1,13 +1,16 @@
 """The port's kernel wrappers against the reference kernels.
 
 On the CPU the port's ``ops`` wrappers (``screen_select(_quant)``,
-``topk_ed(_bucketed)``, ``paa``, ``sax_and_keys``, ``summarize``) run their
-plain PyTorch versions; the reference runs its Pallas kernels in interpret
-mode. Same inputs, made with numpy: slate ids, symbols and keys must be
-equal, and values agree to f32 tolerance, 1e-5 relative (tiled and
-whole-matrix f32 sums differ in the last bits: up to 4.6e-5 absolute on the
-top-k sweep's d2 of ~250, so bitwise agreement belongs after the engine's
-f64 re-rank). The CUDA kernels are held against the plain versions in
+``topk_ed(_bucketed)``, ``paa``, ``sax_and_keys``, ``summarize``,
+``min_ed``, ``mindist``) run their plain PyTorch versions; the reference
+runs its Pallas kernels in interpret mode. Same inputs, made with numpy:
+slate ids, symbols and keys must be equal, and values agree to f32
+tolerance, 1e-5 relative (tiled and whole-matrix f32 sums differ in the
+last bits: up to 4.6e-5 absolute on the top-k sweep's d2 of ~250, so
+bitwise agreement belongs after the engine's f64 re-rank; ``min_ed`` is
+held as the reference's own test holds it, to 2e-4 / 1e-3). The pass loop
+of slates longer than one kernel pass runs over the plain versions here.
+The CUDA kernels are held against the plain versions in
 ``test_torch_cuda.py``.
 """
 import numpy as np
@@ -206,10 +209,13 @@ def test_cpu_tensors_never_count_as_kernel_launches(rng):
     ops.screen_select(_t(q), _t(x.astype(np.float32)), _t(xn2), 3)
     ops.screen_select_quant(_t(q), _t(x), _t(scale), _t(xn2), 3)
     ops.topk_ed(_t(q), _t(x.astype(np.float32)), 3)
-    ops.summarize(_t(x.astype(np.float32)), psum.SummarizationConfig(
-        series_len=16, n_segments=4, card_bits=4))
+    cfg = psum.SummarizationConfig(series_len=16, n_segments=4, card_bits=4)
+    ops.summarize(_t(x.astype(np.float32)), cfg)
+    ops.min_ed(_t(q), _t(x.astype(np.float32)))
+    ops.mindist(_t(q[0, :4]), torch.zeros((5, 4)), torch.ones((5, 4)), cfg)
     assert ops.LAUNCHES == {"screen_select": 0, "screen_select_quant": 0,
-                            "topk_ed": 0, "paa": 0, "sax_pack": 0}
+                            "topk_ed": 0, "paa": 0, "sax_pack": 0, "min_ed": 0,
+                            "mindist": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -387,3 +393,192 @@ def test_summarize_empty_batch(rng):
     assert p.shape == (0, 8) and sym.shape == (0, 8)
     with pytest.raises(ValueError):
         ops.paa(torch.zeros((3, 60)), cfg)
+
+
+# ---------------------------------------------------------------------------
+# slates beyond one kernel pass: the pass loop over the plain versions
+# ---------------------------------------------------------------------------
+def _tied_table(rng, n, d):
+    """Rows with exact duplicates (equal d2 to any query) and all-zero rows
+    (equal d2 among themselves), so passes end inside runs of ties."""
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x[1::7] = x[0]
+    x[3::11] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("kk", [20, 50])
+@pytest.mark.parametrize("name", ["screen_select", "screen_select_quant", "topk_ed"])
+def test_slate_in_passes_equals_the_one_shot_slate(name, kk, rng):
+    """``ops`` takes a slate longer than one kernel pass in passes, each
+    after the previous pass's last entry. With the pass width patched to 8,
+    the passes over the plain versions must give the one-shot slate,
+    ties included."""
+    q = _t(rng.standard_normal((6, 24)).astype(np.float32))
+    q[1] = 0.0  # every all-zero row ties with every other for this query
+    xf = _tied_table(rng, 90, 24)
+    if name == "screen_select_quant":
+        xi, scale, xn2 = (_t(a) for a in _quantize(xf))
+
+        def plain(s, floor=None):
+            return ref.screen_select_quant_ref(q, xi, scale, xn2, s, floor=floor)
+    elif name == "screen_select":
+        x = _t(xf)
+        xn2 = (x * x).sum(-1)
+
+        def plain(s, floor=None):
+            return ref.screen_select_ref(q, x, xn2, s, floor=floor)
+    else:
+        x = _t(xf)
+
+        def plain(s, floor=None):
+            v, i = ref.topk_ed_ref(q, x, s, floor=floor)
+            return v, i, None
+    passes = []
+
+    def step(s, floor):
+        passes.append(s)
+        return plain(s, floor)
+
+    v, i, _ = ops.slate_in_passes(step, kk, 8)
+    want_v, want_i, _ = plain(kk)
+    assert passes == [8] * (kk // 8) + ([kk % 8] if kk % 8 else [])
+    np.testing.assert_array_equal(i.numpy(), want_i.numpy())
+    np.testing.assert_array_equal(v.numpy(), want_v.numpy())
+    # a floor past every candidate leaves only empty slots
+    v, i, _ = plain(4, (torch.full((6,), np.inf), torch.full((6,), 90)))
+    assert (v == np.inf).all() and (i == ref.EMPTY_ID).all()
+
+
+# ---------------------------------------------------------------------------
+# min_ed: per-query minimum squared ED and its row
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m,n,d", [(8, 512, 128), (7, 333, 64), (128, 1024, 256),
+                                   (1, 100, 96)])
+def test_min_ed_matches_reference(m, n, d, rng):
+    q = rng.standard_normal((m, d)).astype(np.float32)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    v, i = ops.min_ed(_t(q), _t(x))
+    rv, ri = rops.min_ed(q, x, block_m=8, block_n=64)
+    assert v.shape == i.shape == (m,) and i.dtype == torch.int32
+    np.testing.assert_allclose(v.numpy(), np.asarray(rv), rtol=2e-4, atol=1e-3)
+    # ids equal, or the rows picked lie within the tolerance of each other
+    # (tiled and whole-matrix f32 sums differ in the last bits: F1)
+    d2 = ((x.astype(np.float64)[None] - q.astype(np.float64)[:, None]) ** 2).sum(-1)
+    rows = np.arange(m)
+    same = i.numpy() == np.asarray(ri)
+    np.testing.assert_allclose(d2[rows, i.numpy()][~same],
+                               d2[rows, np.asarray(ri)][~same], rtol=2e-4, atol=1e-3)
+
+
+def test_min_ed_empty_cases(rng):
+    x = _t(rng.standard_normal((10, 16)).astype(np.float32))
+    v, i = ops.min_ed(torch.zeros((0, 16)), x)
+    rv, ri = rops.min_ed(np.zeros((0, 16), np.float32), x.numpy())
+    assert v.shape == i.shape == (0,) == np.asarray(rv).shape
+    v, i = ops.min_ed(torch.ones((3, 16)), torch.zeros((0, 16)))
+    rv, ri = rops.min_ed(np.ones((3, 16), np.float32), np.zeros((0, 16), np.float32))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    assert (v.numpy() == np.inf).all() and (i.numpy() == -1).all()
+    with pytest.raises(TypeError):
+        ops.min_ed(torch.ones((2, 16), dtype=torch.float64), x.double())
+    with pytest.raises(ValueError):
+        ops.min_ed(torch.ones((2, 8)), x)
+
+
+def test_min_ed_argmin_is_exact_on_separated_data(rng):
+    q = rng.standard_normal((4, 64)).astype(np.float32)
+    x = rng.standard_normal((256, 64)).astype(np.float32) + 10.0
+    x[17] = q[0]
+    x[42] = q[1]
+    x[200] = q[2]
+    x[3] = q[3]
+    v, i = ops.min_ed(_t(q), _t(x))
+    rv, ri = rops.min_ed(q, x, block_m=8, block_n=64)
+    np.testing.assert_array_equal(i.numpy(), [17, 42, 200, 3])
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(v.numpy(), 0.0, atol=1e-3)
+
+
+@pytest.mark.parametrize("m,n,d", [(8, 512, 128), (3, 29, 160), (16, 1000, 256)])
+def test_topk_ed_at_k1_agrees_with_min_ed(m, n, d, rng):
+    q = _t(rng.standard_normal((m, d)).astype(np.float32))
+    x = _t(rng.standard_normal((n, d)).astype(np.float32))
+    v, i = ops.min_ed(q, x)
+    tv, ti = ops.topk_ed(q, x, 1)
+    np.testing.assert_array_equal(i.numpy(), ti.numpy()[:, 0])
+    np.testing.assert_array_equal(v.numpy(), tv.numpy()[:, 0])
+
+
+def test_min_ed_duplicate_rows_keep_the_lower_index(rng):
+    base = rng.standard_normal((32, 64)).astype(np.float32)
+    x = np.tile(base, (3, 1))  # row j == row j + 32 == row j + 64
+    q = base[[5, 9, 30]] + 0.01
+    v, i = ops.min_ed(_t(q), _t(x))
+    np.testing.assert_array_equal(i.numpy(), [5, 9, 30])
+    _, ri = rops.min_ed(q, x, block_m=8, block_n=32)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    v, i = ops.min_ed(torch.zeros((2, 8)), torch.zeros((8, 8)))
+    np.testing.assert_array_equal(i.numpy(), [0, 0])
+
+
+# ---------------------------------------------------------------------------
+# mindist: the MINDIST_PAA_SAX lower bound
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,w", [(512, 16), (100, 8), (2048, 16)])
+def test_mindist_matches_reference(b, w, rng):
+    rc = rsum.SummarizationConfig(series_len=w * 8, n_segments=w, card_bits=8)
+    pc = psum.SummarizationConfig(series_len=w * 8, n_segments=w, card_bits=8)
+    sym = rng.integers(0, 256, (b, w)).astype(np.int64)
+    lo, hi = psum.sax_region(sym, pc)
+    qp = rng.standard_normal(w).astype(np.float32)
+    out = ops.mindist(_t(qp), _t(lo), _t(hi), pc)
+    expect = rops.mindist(qp, lo, hi, rc, block_b=128)
+    assert out.shape == (b,) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(expect), rtol=1e-5)
+    # the kernel's order: segments added left to right, each step rounded
+    d = np.maximum(np.maximum(lo - qp, np.float32(0)), np.maximum(qp - hi, np.float32(0)))
+    acc = np.zeros(b, np.float32)
+    for s in range(w):
+        acc = acc + d[:, s] * d[:, s]
+    np.testing.assert_array_equal(out.numpy(), acc * np.float32(pc.segment_len))
+
+
+def test_mindist_empty_batch(rng):
+    pc = psum.SummarizationConfig(series_len=64, n_segments=8, card_bits=6)
+    rc = rsum.SummarizationConfig(series_len=64, n_segments=8, card_bits=6)
+    qp = rng.standard_normal(8).astype(np.float32)
+    out = ops.mindist(_t(qp), torch.zeros((0, 8)), torch.zeros((0, 8)), pc)
+    assert out.shape == (0,) and out.dtype == torch.float32
+    assert np.asarray(rops.mindist(qp, np.zeros((0, 8), np.float32),
+                                   np.zeros((0, 8), np.float32), rc)).shape == (0,)
+    with pytest.raises(ValueError):
+        ops.mindist(_t(qp), torch.zeros((3, 8)), torch.zeros((3, 4)), pc)
+    with pytest.raises(TypeError):
+        ops.mindist(_t(qp), torch.zeros((3, 8), dtype=torch.float64),
+                    torch.zeros((3, 8), dtype=torch.float64), pc)
+
+
+@pytest.mark.parametrize("w,c", [(16, 8), (8, 4)])
+def test_mindist_lower_bounds_the_f64_ed(w, c, rng):
+    """Every entry's bound (its SAX region against the query's PAA) lies at
+    or below its f64 squared ED to the query, up to f32 rounding; so do the
+    bounds of block zone maps over the same entries."""
+    n = 128
+    cfg = psum.SummarizationConfig(series_len=n, n_segments=w, card_bits=c)
+    x = rng.standard_normal((600, n)).astype(np.float32).cumsum(axis=1) / 8
+    q = rng.standard_normal((5, n)).astype(np.float32).cumsum(axis=1) / 8
+    sym = psum.sax(x, cfg)
+    lo, hi = psum.sax_region(sym, cfg)
+    qp = ops.paa(_t(q), cfg)
+    ed2 = ((x.astype(np.float64)[None] - q.astype(np.float64)[:, None]) ** 2).sum(-1)
+    for j in range(q.shape[0]):
+        lb = ops.mindist(qp[j], _t(lo), _t(hi), cfg).numpy().astype(np.float64)
+        assert (lb <= ed2[j] * (1 + 1e-5)).all()
+        assert (lb > 0).mean() > 0.5  # the bound prunes, not only holds
+        blocks = sym.reshape(6, 100, w)
+        blo, bhi = psum.sax_region(blocks.min(1), cfg)[0], psum.sax_region(blocks.max(1),
+                                                                           cfg)[1]
+        blb = ops.mindist(qp[j], _t(blo), _t(bhi), cfg).numpy().astype(np.float64)
+        assert (blb <= ed2[j].reshape(6, 100).min(1) * (1 + 1e-5)).all()
