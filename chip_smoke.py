@@ -135,7 +135,7 @@ FP32_FLOP_PER_S = 67e12
 EPS32 = 2.0 ** -23
 SOURCES = {
     "screen_select": "src/repro_torch/kernels/csrc/screen_select.cu",
-    "screen_select_quant": "src/repro_torch/kernels/csrc/screen_select.cu",
+    "screen_select_quant": "src/repro_torch/kernels/csrc/screen_quant.cu",
     "topk_ed": "src/repro_torch/kernels/csrc/screen_select.cu",
     "paa": "src/repro_torch/kernels/csrc/summarize.cu",
     "sax_pack": "src/repro_torch/kernels/csrc/summarize.cu",
@@ -153,11 +153,11 @@ REPLACES = {
 }
 # the device kernels each wrapper launches, as the profiler names them
 DEVICE_KERNELS = {"screen_select": ("screen_partial_kernel", "slate_merge_kernel"),
+                  "screen_select_quant": ("screen_quant_kernel",),
                   "paa": ("paa_kernel",), "sax_pack": ("sax_pack_kernel",),
                   "min_ed": ("min_ed_kernel", "min_ed_unpack_kernel"),
                   "mindist": ("mindist_kernel",)}
-DEVICE_KERNELS["screen_select_quant"] = DEVICE_KERNELS["topk_ed"] = \
-    DEVICE_KERNELS["screen_select"]
+DEVICE_KERNELS["topk_ed"] = DEVICE_KERNELS["screen_select"]
 TOPK_PASS_ROWS = 4096  # one kernel-backend pass
 # slates longer than one kernel pass (128 entries): the kernel phase's
 # screens at 200, topk_ed at 200 and 500; the served batch asked again at k

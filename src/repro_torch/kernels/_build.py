@@ -19,7 +19,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "screen_select.cu", CSRC / "summarize.cu", CSRC / "lower_bound.cu")
+SOURCES = (CSRC / "screen_select.cu", CSRC / "screen_quant.cu", CSRC / "summarize.cu",
+           CSRC / "lower_bound.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,8 +39,9 @@ _SIGNATURES = {
     "coconut_layout": ([_P], None),
     "coconut_screen_select": (
         [_I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "coconut_quant_layout": ([_P], None),
     "coconut_screen_select_quant": (
-        [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+        [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P], _I),
     "coconut_topk_ed": (
         [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
     "coconut_min_ed": ([_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P], _I),
@@ -112,9 +114,12 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = restype
-        out = (ctypes.c_int * 3)()
+        out = (ctypes.c_int * 4)()
         lib.coconut_layout(out)
         LAYOUT.update(pass_slate=out[0], query_block=out[1], tile=out[2])
+        lib.coconut_quant_layout(out)
+        LAYOUT["quant"] = dict(pass_slate=out[0], query_block=out[1], tile=out[2],
+                               max_d=out[3])
         lib.coconut_summarize_layout(out)
         LAYOUT.update(paa_row_floats=out[0], max_key_words=out[1],
                       max_breakpoints=out[2])
@@ -126,7 +131,9 @@ def layout() -> dict:
     """The kernels' launch layout as the built library defines it:
     ``pass_slate`` (the most slate entries one pass holds; longer slates
     take several passes), ``query_block`` (queries per block) and ``tile``
-    (candidates per tile) of the screen, top-k and min kernels;
+    (candidates per tile) of the screen, top-k and min kernels; ``quant``
+    the same three for the int8 screen and ``max_d``, the widest rows it
+    stages;
     ``paa_row_floats`` (the most floats of one padded row the PAA kernel
     stages), ``max_key_words`` and ``max_breakpoints`` of SAX-pack."""
     library()

@@ -2,18 +2,17 @@
 // scan, by hand for Hopper.
 //
 // Replaces the Pallas kernels screen_select_pallas (f32 and bf16 tables),
-// screen_select_quant_pallas (int8 tables with per-row scales),
 // topk_ed_pallas (f32 candidates, norms computed in the kernel) and
 // min_ed_pallas (the running min and argmin) of
 // src/repro/kernels/ed_scan_kernel.py (bodies _screen_select_body,
-// _screen_select_quant_body, _topk_ed_body and _ed_scan_body, running merge
-// _merge_topk_tile).
+// _topk_ed_body and _ed_scan_body, running merge _merge_topk_tile). The int8
+// screen (screen_select_quant_pallas) has a design of its own, in
+// screen_quant.cu.
 //
 // What it computes, per query i and candidate j (table row r = rows[j], or
 // r = j when no row list is given):
 //
-//     d2[i, j] = (qn2[i] + xn2[r]) - 2 * g,   g = <q_i, x_r>            (f32, bf16)
-//                                             g = scale[r] * <q_i, v_r> (int8)
+//     d2[i, j] = (qn2[i] + xn2[r]) - 2 * g,   g = <q_i, x_r>
 //
 // For topk_ed and min_ed there is no norms input: xn2[r] is summed in the
 // tile from the same f32 values that feed the dot product (one FMA chain over
@@ -29,7 +28,7 @@
 // What bounds it on the H100: at the engine's batch buckets (m = 16..64
 // queries, d = 128..256) the screen does 2 m flops per table byte read at f32,
 // so a small batch is bound by the 3.35 TB/s of device memory and a large
-// batch, or an int8 table, by the 67 TFLOP/s of f32 FMA on the CUDA cores.
+// batch by the 67 TFLOP/s of f32 FMA on the CUDA cores.
 // topk_ed reads no norms but sums them: every warp of a block squares the
 // tile's candidates for itself (the same FMA chain, so the same value in each
 // warp), half again as many FMAs as the screen alone; at its path's shape
@@ -88,7 +87,6 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
 
 __device__ __forceinline__ bool lex_less(float av, int ai, float bv, int bi) {
   return av < bv || (av == bv && ai < bi);
@@ -226,8 +224,8 @@ __device__ __forceinline__ float screen_d2(float qn2, float xn2, float g) {
 template <typename T, int SMAX, bool NORMS>
 __global__ void __launch_bounds__(NTHREADS)
 screen_partial_kernel(const float* __restrict__ q, int m, int d, const T* __restrict__ x,
-                      const float* __restrict__ xn2, const float* __restrict__ scale,
-                      const int* __restrict__ rows, int n, int s, int chunk, int n_splits,
+                      const float* __restrict__ xn2, const int* __restrict__ rows, int n,
+                      int s, int chunk, int n_splits,
                       const float* __restrict__ floor_v, const int* __restrict__ floor_i,
                       float* __restrict__ part_v, int* __restrict__ part_i,
                       float* __restrict__ qn2_out) {
@@ -272,11 +270,7 @@ screen_partial_kernel(const float* __restrict__ q, int m, int d, const T* __rest
         const int cc = lane + 32 * j;
         const int r = rowid[cc];
         float v = INFINITY;
-        if (r >= 0) {
-          float g = acc[i][j];
-          if (scale != nullptr) g = __fmul_rn(g, scale[r]);  // dequantise the cross term
-          v = screen_d2(qn2s[qi], NORMS ? xacc[j] : xn2[r], g);
-        }
+        if (r >= 0) v = screen_d2(qn2s[qi], NORMS ? xacc[j] : xn2[r], acc[i][j]);
         dt[qi][cc] = v;
       }
     }
@@ -347,13 +341,13 @@ slate_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ par
 }
 
 template <typename T, int SMAX, bool NORMS>
-int launch_t(const float* q, int m, int d, const T* x, const float* xn2, const float* scale,
-             const int* rows, int n, int s, int chunk, int n_splits, const float* floor_v,
+int launch_t(const float* q, int m, int d, const T* x, const float* xn2, const int* rows,
+             int n, int s, int chunk, int n_splits, const float* floor_v,
              const int* floor_i, float* part_v, int* part_i, float* qn2, float* out_v,
              int* out_i, cudaStream_t stream) {
   dim3 grid(n_splits, (m + BM - 1) / BM);
   screen_partial_kernel<T, SMAX, NORMS><<<grid, NTHREADS, 0, stream>>>(
-      q, m, d, x, xn2, scale, rows, n, s, chunk, n_splits, floor_v, floor_i, part_v, part_i,
+      q, m, d, x, xn2, rows, n, s, chunk, n_splits, floor_v, floor_i, part_v, part_i,
       qn2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -363,12 +357,12 @@ int launch_t(const float* q, int m, int d, const T* x, const float* xn2, const f
 }
 
 template <typename T, bool NORMS = false>
-int launch(const float* q, int m, int d, const T* x, const float* xn2, const float* scale,
-           const int* rows, int n, int s, int chunk, int n_splits, const float* floor_v,
+int launch(const float* q, int m, int d, const T* x, const float* xn2, const int* rows,
+           int n, int s, int chunk, int n_splits, const float* floor_v,
            const int* floor_i, float* part_v, int* part_i, float* qn2, float* out_v,
            int* out_i, cudaStream_t stream) {
 #define COCONUT_LAUNCH(SMAX)                                                             \
-  return launch_t<T, SMAX, NORMS>(q, m, d, x, xn2, scale, rows, n, s, chunk, n_splits,  \
+  return launch_t<T, SMAX, NORMS>(q, m, d, x, xn2, rows, n, s, chunk, n_splits,  \
                                   floor_v, floor_i, part_v, part_i, qn2, out_v, out_i,  \
                                   stream)
   if (s <= 16) COCONUT_LAUNCH(16);
@@ -489,27 +483,12 @@ int coconut_screen_select(int dtype, const void* q, int m, int d, const void* x,
   int* oi = static_cast<int*>(out_i);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(qf, m, d, static_cast<const float*>(x), n2, nullptr, r, n, s, chunk,
+    return launch<float>(qf, m, d, static_cast<const float*>(x), n2, r, n, s, chunk,
                          n_splits, fv, fi, pv, pi, qn, ov, oi, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(qf, m, d, static_cast<const __nv_bfloat16*>(x), n2, nullptr,
-                                 r, n, s, chunk, n_splits, fv, fi, pv, pi, qn, ov, oi, st);
+    return launch<__nv_bfloat16>(qf, m, d, static_cast<const __nv_bfloat16*>(x), n2, r, n, s,
+                                 chunk, n_splits, fv, fi, pv, pi, qn, ov, oi, st);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// int8 table with per-row f32 scales applied to the contraction.
-int coconut_screen_select_quant(const void* q, int m, int d, const void* x, const void* scale,
-                                const void* xn2, const void* rows, int n, int s, int chunk,
-                                int n_splits, const void* floor_v, const void* floor_i,
-                                void* part_v, void* part_i, void* qn2, void* out_v,
-                                void* out_i, void* stream) {
-  return launch<int8_t>(static_cast<const float*>(q), m, d, static_cast<const int8_t*>(x),
-                        static_cast<const float*>(xn2), static_cast<const float*>(scale),
-                        static_cast<const int*>(rows), n, s, chunk, n_splits,
-                        static_cast<const float*>(floor_v), static_cast<const int*>(floor_i),
-                        static_cast<float*>(part_v), static_cast<int*>(part_i),
-                        static_cast<float*>(qn2), static_cast<float*>(out_v),
-                        static_cast<int*>(out_i), static_cast<cudaStream_t>(stream));
 }
 
 // topk_ed: f32 candidates x (n, d) taken in order (no row list), |x|^2
@@ -518,7 +497,7 @@ int coconut_topk_ed(const void* q, int m, int d, const void* x, int n, int s, in
                     int n_splits, const void* floor_v, const void* floor_i, void* part_v,
                     void* part_i, void* qn2, void* out_v, void* out_i, void* stream) {
   return launch<float, true>(static_cast<const float*>(q), m, d, static_cast<const float*>(x),
-                             nullptr, nullptr, nullptr, n, s, chunk, n_splits,
+                             nullptr, nullptr, n, s, chunk, n_splits,
                              static_cast<const float*>(floor_v),
                              static_cast<const int*>(floor_i), static_cast<float*>(part_v),
                              static_cast<int*>(part_i), static_cast<float*>(qn2),

@@ -1,8 +1,9 @@
 """Public wrappers around the hand-written kernels.
 
 Dispatch follows the device of the tensors: a CUDA tensor goes to the CUDA
-kernel (``csrc/screen_select.cu`` for the screens, ``topk_ed`` and
-``min_ed``, ``csrc/summarize.cu`` for ``paa`` and ``sax_pack``,
+kernel (``csrc/screen_select.cu`` for the f32 and bf16 screen, ``topk_ed``
+and ``min_ed``, ``csrc/screen_quant.cu`` for the int8 screen,
+``csrc/summarize.cu`` for ``paa`` and ``sax_pack``,
 ``csrc/lower_bound.cu`` for ``mindist``; built on first use by
 :mod:`._build`) or the call raises; a CPU tensor goes to the plain PyTorch
 version in :mod:`.ref`. There is no fallback from one to the other.
@@ -155,7 +156,9 @@ def _screen(name: str, q, x, scale, xn2, k: int, rows):
         return vals, idxs, qn2
     if dev.type != "cuda":
         raise ValueError(f"no screen_select for device {dev}")
-    return _launch(name, q, x, scale, xn2, k, kk, rows, n)
+    if name == "screen_select_quant":
+        return _launch_quant(q, x, scale, xn2, k, kk, rows, n)
+    return _launch(name, q, x, xn2, k, kk, rows, n)
 
 
 def slate_in_passes(step, kk: int, width: int):
@@ -179,27 +182,31 @@ def slate_in_passes(step, kk: int, width: int):
     return torch.cat(vals, dim=1), torch.cat(idxs, dim=1), qn2
 
 
-def _launch(name, q, x, scale, xn2, k, kk, rows, n):
-    """The CUDA kernels of screen_select, screen_select_quant and topk_ed:
-    partial slates over candidate splits, then a merge; in passes of
-    ``pass_slate`` entries where the slate is longer."""
+def _prepare(q, rows, tensors):
+    """Contiguity checks, the queries made contiguous and the row list
+    moved to the card as int32."""
+    for t, what in tensors:
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+    if rows is not None:
+        rows = rows.to(device=q.device, dtype=torch.int32, non_blocking=True).contiguous()
+    return q.contiguous(), rows
+
+
+def _launch(name, q, x, xn2, k, kk, rows, n):
+    """The CUDA kernels of screen_select and topk_ed: partial slates over
+    candidate splits, then a merge; in passes of ``pass_slate`` entries
+    where the slate is longer."""
     from . import _build  # builds the library on first use
 
     layout = _build.layout()
-    for t, what in ((x, "x"), (xn2, "xn2"), (scale, "scale")):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{what} must be contiguous")
     if name == "screen_select":
         code = {torch.float32: 0, torch.bfloat16: 1}.get(x.dtype)
         if code is None:
             raise TypeError(f"screen_select takes f32 or bf16 tables, not {x.dtype}")
-    elif name == "screen_select_quant" and x.dtype != torch.int8:
-        raise TypeError(f"screen_select_quant takes int8 tables, not {x.dtype}")
+    q, rows = _prepare(q, rows, ((x, "x"), (xn2, "xn2")))
     dev = q.device
-    q = q.contiguous()
     m, d = q.shape
-    if rows is not None:
-        rows = rows.to(device=dev, dtype=torch.int32, non_blocking=True).contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     qn2 = torch.empty((m,), **f32)
@@ -220,15 +227,57 @@ def _launch(name, q, x, scale, xn2, k, kk, rows, n):
                 stream)
         if name == "topk_ed":
             rc = lib.coconut_topk_ed(q.data_ptr(), m, d, x.data_ptr(), *tail[1:])
-        elif name == "screen_select":
+        else:
             rc = lib.coconut_screen_select(code, q.data_ptr(), m, d, x.data_ptr(),
                                            xn2.data_ptr(), *tail)
-        else:
-            rc = lib.coconut_screen_select_quant(q.data_ptr(), m, d, x.data_ptr(),
-                                                 scale.data_ptr(), xn2.data_ptr(), *tail)
         if rc != 0:
             raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
         LAUNCHES[name] += 1
+        return out_v, out_i, qn2
+
+    out_v, out_i, qn2 = slate_in_passes(one_pass, kk, layout["pass_slate"])
+    vals, idxs = _finish(out_v, out_i, n, k)
+    return vals, idxs, qn2
+
+
+def _launch_quant(q, x, scale, xn2, k, kk, rows, n):
+    """The CUDA kernel of screen_select_quant: one launch per pass, whose
+    last block of each query block merges the partial slates itself; in
+    passes of ``pass_slate`` entries where the slate is longer."""
+    from . import _build  # builds the library on first use
+
+    layout = _build.layout()["quant"]
+    if x.dtype != torch.int8:
+        raise TypeError(f"screen_select_quant takes int8 tables, not {x.dtype}")
+    if x.shape[1] > layout["max_d"]:
+        raise ValueError(f"rows of {x.shape[1]} values exceed the int8 screen's "
+                         f"staging ({layout['max_d']})")
+    q, rows = _prepare(q, rows, ((x, "x"), (xn2, "xn2"), (scale, "scale")))
+    dev = q.device
+    m, d = q.shape
+    qn2 = torch.empty((m,), dtype=torch.float32, device=dev)
+    stream = _stream(dev)
+    rows_ptr = None if rows is None else rows.data_ptr()
+    lib = _build.library()
+    m_blocks = math.ceil(m / layout["query_block"])
+
+    def one_pass(s, floor):
+        chunk, n_splits = _splits(dev, n, m, s, layout)
+        # partial slates and per-query thresholds (8 bytes an entry), then a
+        # ticket counter per query block (4 bytes)
+        scratch = torch.empty((m * n_splits * s + m + math.ceil(m_blocks / 2),),
+                              dtype=torch.int64, device=dev)
+        out_v = torch.empty((m, s), dtype=torch.float32, device=dev)
+        out_i = torch.empty((m, s), dtype=torch.int32, device=dev)
+        fv, fi = (None, None) if floor is None else (floor[0].data_ptr(),
+                                                     floor[1].data_ptr())
+        rc = lib.coconut_screen_select_quant(
+            q.data_ptr(), m, d, x.data_ptr(), scale.data_ptr(), xn2.data_ptr(), rows_ptr, n,
+            s, chunk, n_splits, fv, fi, scratch.data_ptr(), qn2.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"screen_select_quant kernel launch failed with CUDA error {rc}")
+        LAUNCHES["screen_select_quant"] += 1
         return out_v, out_i, qn2
 
     out_v, out_i, qn2 = slate_in_passes(one_pass, kk, layout["pass_slate"])
@@ -307,7 +356,7 @@ def topk_ed(q: torch.Tensor, x: torch.Tensor,
         return _finish(vals, idxs, n, k)
     if dev.type != "cuda":
         raise ValueError(f"no topk_ed for device {dev}")
-    return _launch("topk_ed", q, x.contiguous(), None, None, k, kk, None, n)[:2]
+    return _launch("topk_ed", q, x.contiguous(), None, k, kk, None, n)[:2]
 
 
 def topk_ed_bucketed(q: torch.Tensor, x: torch.Tensor,

@@ -6,6 +6,8 @@ card. Nothing here imports JAX, so the machine with the card runs it:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -112,6 +114,116 @@ def test_engine_answers_do_not_depend_on_the_device(cuda, dtype):
         out.append(eng.screen_topk(view, trows, Q, 5))
     np.testing.assert_array_equal(out[0][1], out[1][1])
     np.testing.assert_array_equal(out[0][0], out[1][0])
+
+
+# ---------------------------------------------------------------------------
+# the int8 screen (csrc/screen_quant.cu): copy units, merge, streams, launches
+# ---------------------------------------------------------------------------
+def _int8_case(cuda, rng, m, n, d, offset=0):
+    """Queries and an int8 table whose rows start ``offset`` bytes past an
+    aligned base (a view into a larger buffer)."""
+    q = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(cuda)
+    xq, scale, xn2 = _quantize(rng.standard_normal((n, d)).astype(np.float32))
+    buf = torch.empty(n * d + 16, dtype=torch.int8, device=cuda)
+    x = buf[offset:offset + n * d].view(n, d)
+    x.copy_(torch.from_numpy(xq).to(cuda))
+    return q, x, torch.from_numpy(scale).to(cuda), torch.from_numpy(xn2).to(cuda)
+
+
+@pytest.mark.parametrize("d,offset", [(100, 1), (100, 0), (256, 4), (300, 0), (600, 8),
+                                      (2048, 0)])
+def test_cuda_quant_any_width_and_alignment(cuda, d, offset):
+    """Rows of any width (several staged slices above 256) on a table whose
+    base is 16-, 4- or 1-byte aligned: the same slate as the plain version."""
+    rng = np.random.default_rng(d + offset)
+    m, n, k = 19, 4099, 13
+    q, x, scale, xn2 = _int8_case(cuda, rng, m, n, d, offset)
+    assert x.data_ptr() % 16 == offset % 16
+    rows = torch.from_numpy(rng.permutation(n)[: n - 5].astype(np.int32)).to(cuda)
+    r = rows.long()
+    ops.reset_launches()
+    v, i, qn2 = ops.screen_select_quant(q, x, scale, xn2, k, rows=rows)
+    pfull, pord, pqn2 = ref.screen_select_quant_ref(q, x[r], scale[r], xn2[r], r.numel())
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["screen_select_quant"] == 1
+    _hold_slate(v, i, pfull, pord, k, 1e-5 * float(pqn2.max() + xn2.max()))
+    np.testing.assert_allclose(qn2.cpu().numpy(), pqn2.cpu().numpy(), rtol=1e-5)
+
+
+def test_cuda_quant_refuses_rows_wider_than_its_staging(cuda):
+    """Queries of the widest rows fill the kernel's shared memory: wider
+    rows raise instead of launching."""
+    d = 2049
+    q = torch.zeros((2, d), device=cuda)
+    x = torch.zeros((10, d), dtype=torch.int8, device=cuda)
+    ones = torch.ones(10, device=cuda)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="staging"):
+        ops.screen_select_quant(q, x, ones, ones, 3)
+    assert ops.LAUNCHES["screen_select_quant"] == 0
+
+
+@pytest.mark.parametrize("k", [13, 200])
+def test_cuda_quant_equal_rows_keep_the_lower_positions(cuda, k):
+    """Every row equal, over many splits of the candidate axis: the slate is
+    the first k positions, in order, at one distance."""
+    n, d = 70000, 64
+    q = torch.full((5, d), 0.25, device=cuda)
+    x = torch.full((n, d), 3, dtype=torch.int8, device=cuda)
+    scale = torch.full((n,), 0.5, device=cuda)
+    xn2 = torch.full((n,), float(d) * 2.25, device=cuda)
+    for rows in (None, torch.arange(n - 1, -1, -1, dtype=torch.int32, device=cuda)):
+        v, i, _ = ops.screen_select_quant(q, x, scale, xn2, k, rows=rows)
+        assert i.tolist() == [list(range(k))] * 5
+        assert (v == v[0, 0]).all()
+
+
+def test_cuda_quant_two_streams_at_once(cuda):
+    """Two passes issued on two streams at once: each equals the same call
+    made alone, bit for bit, and its plain version."""
+    rng = np.random.default_rng(11)
+    cases = [_int8_case(cuda, rng, 16, 30000, 256), _int8_case(cuda, rng, 40, 20000, 128)]
+    alone = [ops.screen_select_quant(q, x, sc, n2, 13) for q, x, sc, n2 in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    together = []
+    for (q, x, sc, n2), st in zip(cases, streams):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            together.append(ops.screen_select_quant(q, x, sc, n2, 13))
+    torch.cuda.synchronize()
+    for (q, x, sc, n2), a, b in zip(cases, alone, together):
+        assert torch.equal(a[1], b[1])
+        assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+        pfull, pord, pqn2 = ref.screen_select_quant_ref(q, x, sc, n2, x.shape[0])
+        _hold_slate(b[0], b[1], pfull, pord, 13, 1e-5 * float(pqn2.max() + n2.max()))
+
+
+@pytest.mark.parametrize("k", [13, 200])
+def test_cuda_quant_one_launch_per_pass(cuda, k):
+    """One screen_quant_kernel per pass and no separate merge kernel: the
+    launch count says so, and the profiler's trace holds no other kernel of
+    the screens (it may drop launches of a short run, never add them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(12)
+    q, x, scale, xn2 = _int8_case(cuda, rng, 16, 50000, 256)
+    ops.screen_select_quant(q, x, scale, xn2, k)
+    torch.cuda.synchronize()
+    calls, passes = 4, -(-k // ops.pass_slate())
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ops.screen_select_quant(q, x, scale, xn2, k)
+            torch.cuda.synchronize()
+    assert ops.LAUNCHES["screen_select_quant"] == calls * passes
+    names = collections.Counter()
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CPU"):
+            names[e.key] += e.count
+    quant = sum(c for name, c in names.items() if "screen_quant_kernel" in name)
+    assert 0 < quant <= calls * passes, names
+    assert not any("slate_merge" in name or "screen_partial" in name for name in names), names
 
 
 # ---------------------------------------------------------------------------

@@ -582,3 +582,91 @@ def test_mindist_lower_bounds_the_f64_ed(w, c, rng):
                                                                            cfg)[1]
         blb = ops.mindist(qp[j], _t(blo), _t(bhi), cfg).numpy().astype(np.float64)
         assert (blb <= ed2[j].reshape(6, 100).min(1) * (1 + 1e-5)).all()
+
+
+# ---------------------------------------------------------------------------
+# the int8 kernel's one-launch merge rule, emulated in plain torch
+# ---------------------------------------------------------------------------
+def _split_slates(d2, k, bounds, floor):
+    """Per row: each split [a, b)'s lexicographic top-k of the candidates
+    after the floor, padded with (inf, EMPTY_ID), and T, the least k-th
+    entry over the splits."""
+    empty = (float("inf"), ref.EMPTY_ID)
+    for row in range(d2.shape[0]):
+        vals = d2[row].tolist()
+        fk = None if floor is None else (float(floor[0][row]), int(floor[1][row]))
+        slates = []
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            ents = sorted(e for e in ((vals[j], j) for j in range(a, b))
+                          if fk is None or fk < e)[:k]
+            slates.append(ents + [empty] * (k - len(ents)))
+        yield slates, min(sl[k - 1] for sl in slates)
+
+
+def _threshold_merge(d2, k, bounds, floor=None):
+    """The threshold rule: the first k of the real split entries at or
+    below T."""
+    empty = (float("inf"), ref.EMPTY_ID)
+    out = []
+    for slates, t in _split_slates(d2, k, bounds, floor):
+        kept = sorted(e for sl in slates for e in sl if e <= t and e != empty)[:k]
+        out.append(kept + [empty] * (k - len(kept)))
+    return out
+
+
+def _minima_walk_merge(d2, k, bounds, floor=None):
+    """The merge of ``csrc/screen_quant.cu``: every split's least entry (at
+    or below T) is offered, then the splits whose least entry made the slate
+    are walked in order while their entries beat the slate's worst entry
+    and lie at or below T."""
+    empty = (float("inf"), ref.EMPTY_ID)
+    out = []
+    for slates, t in _split_slates(d2, k, bounds, floor):
+        slate = sorted(sl[0] for sl in slates if sl[0] <= t and sl[0] != empty)[:k]
+        slate += [empty] * (k - len(slate))
+        walked = [sl for sl in slates if sl[0] in slate and sl[0] != empty]
+        for sl in walked:
+            for e in sl[1:]:
+                if not (e < slate[-1] and e <= t):
+                    break
+                slate = sorted(slate + [e])[:k]
+        out.append(slate)
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("rule", [_threshold_merge, _minima_walk_merge],
+                         ids=["threshold", "minima-walk"])
+@pytest.mark.parametrize("case", ["random", "ties", "empty-splits", "short-splits",
+                                  "s=1", "floor", "floor-past-most", "all-equal"])
+def test_split_merge_equals_the_one_shot_slate(case, rule, seed):
+    """Merging the splits' slates by either rule loses no entry of the
+    row's slate: cutting them at the least k-th entry over the splits, and
+    walking from the split minima (the int8 kernel's merge). Exact ties
+    across splits, empty splits, splits shorter than k, k = 1 and a
+    floor."""
+    rng = np.random.default_rng(seed)
+    m, n, k, n_cuts = 5, 240, 13, 7
+    d2 = rng.standard_normal((m, n)).astype(np.float32)
+    if case == "ties":  # few distinct values: exact ties inside and across splits
+        d2 = rng.integers(0, 4, (m, n)).astype(np.float32)
+    elif case == "all-equal":
+        d2 = np.zeros((m, n), np.float32)
+    elif case == "short-splits":
+        k, n_cuts = 30, 40  # splits of ~6 candidates, shorter than k
+    elif case == "s=1":
+        k = 1
+    cuts = np.sort(rng.integers(0, n + 1, n_cuts))
+    if case == "empty-splits":
+        cuts = np.repeat(cuts, 2)  # every other split is empty
+    bounds = [0, *cuts.tolist(), n]
+    d2 = torch.from_numpy(d2)
+    floor = None
+    if case.startswith("floor"):  # the last entry of an earlier pass of the row
+        sv, si = ref._lex_topk(d2, 200 if case == "floor-past-most" else 40)
+        floor = (sv[:, -1], si[:, -1])
+    want_v, want_i = ref._lex_topk(d2, k, floor)
+    got = rule(d2, k, bounds, floor)
+    assert torch.equal(torch.tensor([[e[1] for e in r] for r in got], dtype=torch.int32),
+                       want_i)
+    assert torch.equal(torch.tensor([[e[0] for e in r] for r in got]), want_v)
