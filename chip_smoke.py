@@ -134,8 +134,8 @@ FP32_FLOP_PER_S = 67e12
 
 EPS32 = 2.0 ** -23
 SOURCES = {
-    "screen_select": "src/repro_torch/kernels/csrc/screen_select.cu",
-    "screen_select_quant": "src/repro_torch/kernels/csrc/screen_quant.cu",
+    "screen_select": "src/repro_torch/kernels/csrc/screen_fused.cu",
+    "screen_select_quant": "src/repro_torch/kernels/csrc/screen_fused.cu",
     "topk_ed": "src/repro_torch/kernels/csrc/screen_select.cu",
     "paa": "src/repro_torch/kernels/csrc/summarize.cu",
     "sax_pack": "src/repro_torch/kernels/csrc/summarize.cu",
@@ -152,12 +152,12 @@ REPLACES = {
     "mindist": "src/repro/kernels/lb_kernel.py:30",
 }
 # the device kernels each wrapper launches, as the profiler names them
-DEVICE_KERNELS = {"screen_select": ("screen_partial_kernel", "slate_merge_kernel"),
+DEVICE_KERNELS = {"screen_select": ("screen_dense_kernel",),
                   "screen_select_quant": ("screen_quant_kernel",),
+                  "topk_ed": ("screen_partial_kernel", "slate_merge_kernel"),
                   "paa": ("paa_kernel",), "sax_pack": ("sax_pack_kernel",),
                   "min_ed": ("min_ed_kernel", "min_ed_unpack_kernel"),
                   "mindist": ("mindist_kernel",)}
-DEVICE_KERNELS["topk_ed"] = DEVICE_KERNELS["screen_select"]
 TOPK_PASS_ROWS = 4096  # one kernel-backend pass
 # slates longer than one kernel pass (128 entries): the kernel phase's
 # screens at 200, topk_ed at 200 and 500; the served batch asked again at k
@@ -690,8 +690,8 @@ def probe_tier(torch, ops, engine, method, shapes):
     real = getattr(StreamingIndex, method)
     kernels = {n: getattr(ops, n) for n in ("screen_select", "screen_select_quant")}
     rec = {"n": 0, "traced": [], "launches": collections.Counter(),
-           "engine": collections.Counter(), "busy": collections.Counter(),
-           "traced_s": 0.0}
+           "traced_launches": collections.Counter(), "engine": collections.Counter(),
+           "busy": collections.Counter(), "traced_s": 0.0}
 
     def recorder(fname):
         def wrapped(q, x, *args, rows=None):
@@ -726,6 +726,7 @@ def probe_tier(torch, ops, engine, method, shapes):
                 for n, fn in kernels.items():
                     setattr(ops, n, fn)
                 rec["busy"].update(device_times(prof))
+                rec["traced_launches"].update(launches)
             rec["launches"].update(launches)
             rec["engine"].update({k: engine.stats[k] - before[k]
                                   for k in ENGINE_COUNTERS})
@@ -760,6 +761,13 @@ def report_phase(name, rec, lat, kernel, fallback_limit, wall):
         f"ms/query p50={p50:.4f} p95={p95:.4f} over {len(bare)} untraced batches")
     if launches.get(kernel, 0) == 0:
         fail(f"{name}: the serving tier never launched {kernel}")
+    # the screens are one launch a pass: the traced calls ran their own
+    # device kernel (where they launched the wrapper) and no two-launch one
+    ran = [k for k in rec["busy"] if any(n in k for n in DEVICE_KERNELS[kernel])]
+    if rec["traced_launches"][kernel] > 0 and not ran:
+        fail(f"{name}: the profiler saw no {DEVICE_KERNELS[kernel]} in the traced calls")
+    if any(n in k for k in rec["busy"] for n in DEVICE_KERNELS["topk_ed"]):
+        fail(f"{name}: the profiler saw a two-launch screen kernel in the traced calls")
     if share > fallback_limit:
         fail(f"{name}: {share:.4f} of the screened queries fell back to the host")
     if len(bare) == 0 or not all(math.isfinite(v) for v in lat):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the int8 screen (``ops.screen_select_quant``) on one NVIDIA card, at
-the five int8 shapes of the kernel phase and the serving pass, and the f32,
-bf16, ``topk_ed`` and ``min_ed`` kernels beside it; optionally of another
-source tree of the port, so that two builds compare on one card.
+"""Time the three screens (``ops.screen_select`` over f32 and bf16 tables,
+``ops.screen_select_quant`` over int8) on one NVIDIA card, each at five
+shapes of the kernel phase and the serving pass, and the ``topk_ed`` and
+``min_ed`` kernels beside them; optionally of another source tree of the
+port, so that two builds compare on one card.
 
     python3 scripts/bench_screen_quant.py [--tree DIR] [--label NAME]
         [--others] [--save FILE] [--compare FILE]
@@ -12,8 +13,8 @@ source tree of the port, so that two builds compare on one card.
 ``build/``. Tables and queries are made on the card from fixed seeds, so two
 runs on one card get the same inputs: ``--save`` keeps every kernel output
 and ``--compare`` reports, per shape, whether the outputs of an earlier run
-are equal bit for bit. Each int8 case is first held against the plain
-version within the engine's certificate bound (``chip_smoke.Case.check``).
+are equal bit for bit. Each case is first held against the plain version
+within the engine's certificate bound (``chip_smoke.Case.check``).
 Kernel times are the profiler's device time per launch of the kernels named
 in ``KERNELS`` (and of the memsets, logged apart); ``library`` is the
 PyTorch yardstick of ``chip_smoke.py``. Prints one line per case and, last,
@@ -33,7 +34,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # the device kernels of the wrappers, in every build of the port so far
 KERNELS = ("screen_partial_kernel", "slate_merge_kernel", "screen_quant_kernel",
-           "min_ed_kernel", "min_ed_unpack_kernel")
+           "screen_dense_kernel", "min_ed_kernel", "min_ed_unpack_kernel")
 TABLE_ROWS = 1 << 20
 D = 256
 S = 13
@@ -68,7 +69,7 @@ def main() -> int:
     ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--others", action="store_true",
-                    help="also the f32, bf16, topk_ed and min_ed kernels")
+                    help="also the topk_ed and min_ed kernels")
     ap.add_argument("--save", default=None)
     ap.add_argument("--compare", default=None)
     ap.add_argument("--reps", type=int, default=50)
@@ -90,7 +91,7 @@ def main() -> int:
     print(f"[{args.label}] {smi}; ops from {ops.__file__}", flush=True)
     _build.library()
     for ln in _build.BUILD_LOG.splitlines():
-        if "screen_quant" in ln or "registers" in ln or "spill" in ln:
+        if "screen_" in ln or "registers" in ln or "spill" in ln:
             print(f"[{args.label}] ptxas: {ln.strip()}")
 
     dev = torch.device("cuda")
@@ -101,16 +102,15 @@ def main() -> int:
              + 0.01 * torch.randn((m, D), generator=gen, device=dev)).contiguous()
          for m in (16, 64)}
     rows = {16384: perm[:16384], 49152: perm[:49152], None: None}
-    cases = [("int8 serving m=16 n=16384/2^20", "int8", 16, 16384),
-             ("int8 m=16 n=49152/2^20", "int8", 16, 49152),
-             ("int8 m=16 full 2^20", "int8", 16, None),
-             ("int8 m=64 n=49152/2^20", "int8", 64, 49152),
-             ("int8 m=64 full 2^20", "int8", 64, None)]
+    cases = [(f"{kind} {what}", kind, m, n)
+             for kind in ("int8", "f32", "bf16")
+             for what, m, n in (("serving m=16 n=16384/2^20", 16, 16384),
+                                ("m=16 n=49152/2^20", 16, 49152),
+                                ("m=16 full 2^20", 16, None),
+                                ("m=64 n=49152/2^20", 64, 49152),
+                                ("m=64 full 2^20", 64, None))]
     if args.others:
-        cases += [("f32 serving m=16 n=16384/2^20", "f32", 16, 16384),
-                  ("f32 m=64 full 2^20", "f32", 64, None),
-                  ("bf16 serving m=16 n=16384/2^20", "bf16", 16, 16384),
-                  ("topk_ed m=1 n=32768", "topk", 1, 32768),
+        cases += [("topk_ed m=1 n=32768", "topk", 1, 32768),
                   ("topk_ed m=64 full 2^20", "topk", 64, None),
                   ("min_ed m=16 full 2^20", "min_ed", 16, None),
                   ("min_ed m=64 full 2^20", "min_ed", 64, None)]

@@ -19,7 +19,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "screen_select.cu", CSRC / "screen_quant.cu", CSRC / "summarize.cu",
+SOURCES = (CSRC / "screen_select.cu", CSRC / "screen_fused.cu", CSRC / "summarize.cu",
            CSRC / "lower_bound.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -37,9 +37,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "coconut_layout": ([_P], None),
+    "coconut_screen_layout": ([_P], None),
     "coconut_screen_select": (
-        [_I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
-    "coconut_quant_layout": ([_P], None),
+        [_I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P], _I),
     "coconut_screen_select_quant": (
         [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P], _I),
     "coconut_topk_ed": (
@@ -117,12 +117,10 @@ def library() -> ctypes.CDLL:
         out = (ctypes.c_int * 4)()
         lib.coconut_layout(out)
         LAYOUT.update(pass_slate=out[0], query_block=out[1], tile=out[2])
-        lib.coconut_quant_layout(out)
-        LAYOUT["quant"] = dict(pass_slate=out[0], query_block=out[1], tile=out[2],
-                               max_d=out[3])
+        lib.coconut_screen_layout(out)
+        LAYOUT["screen"] = dict(pass_slate=out[0], query_block=out[1], tile=out[2])
         lib.coconut_summarize_layout(out)
-        LAYOUT.update(paa_row_floats=out[0], max_key_words=out[1],
-                      max_breakpoints=out[2])
+        LAYOUT.update(max_key_words=out[0], max_breakpoints=out[1])
         _LIB = lib
         return lib
 
@@ -131,10 +129,8 @@ def layout() -> dict:
     """The kernels' launch layout as the built library defines it:
     ``pass_slate`` (the most slate entries one pass holds; longer slates
     take several passes), ``query_block`` (queries per block) and ``tile``
-    (candidates per tile) of the screen, top-k and min kernels; ``quant``
-    the same three for the int8 screen and ``max_d``, the widest rows it
-    stages;
-    ``paa_row_floats`` (the most floats of one padded row the PAA kernel
-    stages), ``max_key_words`` and ``max_breakpoints`` of SAX-pack."""
+    (candidates per tile) of the top-k and min kernels; ``screen`` the same
+    three for the f32, bf16 and int8 screens; ``max_key_words`` and
+    ``max_breakpoints`` of SAX-pack."""
     library()
     return LAYOUT

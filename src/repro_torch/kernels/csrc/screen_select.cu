@@ -1,49 +1,41 @@
-// Fused screen + top-s select for the verification engine, and the k = 1
-// scan, by hand for Hopper.
+// Top-k squared ED with the norms summed in the kernel, and the k = 1 scan,
+// by hand for Hopper.
 //
-// Replaces the Pallas kernels screen_select_pallas (f32 and bf16 tables),
-// topk_ed_pallas (f32 candidates, norms computed in the kernel) and
-// min_ed_pallas (the running min and argmin) of
-// src/repro/kernels/ed_scan_kernel.py (bodies _screen_select_body,
-// _topk_ed_body and _ed_scan_body, running merge _merge_topk_tile). The int8
-// screen (screen_select_quant_pallas) has a design of its own, in
-// screen_quant.cu.
+// Replaces the Pallas kernels topk_ed_pallas (f32 candidates, norms computed
+// in the kernel) and min_ed_pallas (the running min and argmin) of
+// src/repro/kernels/ed_scan_kernel.py (bodies _topk_ed_body and
+// _ed_scan_body, running merge _merge_topk_tile). The screens over tables
+// with cached norms (screen_select_pallas, screen_select_quant_pallas) have
+// a design of their own, in screen_fused.cu.
 //
-// What it computes, per query i and candidate j (table row r = rows[j], or
-// r = j when no row list is given):
+// What it computes, per query i and candidate row j:
 //
-//     d2[i, j] = (qn2[i] + xn2[r]) - 2 * g,   g = <q_i, x_r>
+//     d2[i, j] = (qn2[i] + xn2[j]) - 2 * g,   g = <q_i, x_j>
 //
-// For topk_ed and min_ed there is no norms input: xn2[r] is summed in the
-// tile from the same f32 values that feed the dot product (one FMA chain over
-// d per candidate), as the Pallas body's _tile_d2 computes |x|^2 per tile.
+// xn2[j] is summed in the tile from the same f32 values that feed the dot
+// product (one FMA chain over d per candidate), as the Pallas body's
+// _tile_d2 computes |x|^2 per tile, with every product and sum in true f32
+// on the CUDA cores (no TF32 or tensor-core product). The output is the
+// top-s slate per query in lexicographic (d2, j) order, empty slots (inf,
+// INT32_MAX), plus qn2 = |q_i|^2. min_ed returns the first entry of that
+// order: the same d2 arithmetic, so its answer is topk_ed's at k = 1.
 //
-// with every product and sum in true f32 on the CUDA cores: the table values
-// are upcast in registers, and there is no TF32 or tensor-core product, so the
-// engine's certificate 4 d u32 |q| |x|max holds for the screen. The output is
-// the top-s slate per query in lexicographic (d2, j) order, empty slots
-// (inf, INT32_MAX), plus qn2 = |q_i|^2. min_ed returns the first entry of
-// that order: the same d2 arithmetic, so its answer is topk_ed's at k = 1.
-//
-// What bounds it on the H100: at the engine's batch buckets (m = 16..64
-// queries, d = 128..256) the screen does 2 m flops per table byte read at f32,
-// so a small batch is bound by the 3.35 TB/s of device memory and a large
-// batch by the 67 TFLOP/s of f32 FMA on the CUDA cores.
-// topk_ed reads no norms but sums them: every warp of a block squares the
-// tile's candidates for itself (the same FMA chain, so the same value in each
-// warp), half again as many FMAs as the screen alone; at its path's shape
-// (m <= 16, one pass of a few thousand rows) it stays bound by bytes.
+// What bounds it on the H100: 2 m flops per candidate value for the
+// products, against the 3.35 TB/s of device memory and the 67 TFLOP/s of
+// f32 FMA on the CUDA cores. Every warp of a block squares the tile's
+// candidates for itself (the same FMA chain, so the same value in each
+// warp), half again as many FMAs as the products alone; at topk_ed's path
+// shape (m <= 16, one pass of a few thousand rows) it stays bound by bytes.
 //
 // Design. The TPU kernel walks the candidate axis in order inside one grid
 // and carries the running top-k in VMEM; on the H100 that would leave m/bm
 // blocks, one block at m = 16. So the candidate axis is split over blocks:
 //
 //   screen_partial_kernel  grid (n_splits, ceil(m / BM)), 256 threads. A block
-//     streams its candidate slice in tiles of TN rows: the row list is read by
-//     the block itself (the gather never materialises a (B, d) copy), the
-//     tile is staged in shared memory in DK-wide slices of the contraction, and
-//     each thread accumulates a 2 x 4 register tile of dot products, so one
-//     shared-memory read of a table value feeds two FMAs. The finished d2 tile
+//     streams its candidate slice in tiles of TN rows: the tile is staged in
+//     shared memory in DK-wide slices of the contraction, and each thread
+//     accumulates a 2 x 4 register tile of dot products, so one shared-memory
+//     read of a table value feeds two FMAs. The finished d2 tile
 //     goes through shared memory to the selection: each warp owns two queries
 //     and keeps their slates sorted in shared memory. A candidate is tested
 //     against the slate's worst entry (nearly all fail once the slate is
@@ -61,7 +53,7 @@
 //     and -0.0 is made +0.0 first so that equal distances keep the lower id.
 //
 // A slate holds at most PASS_SLATE entries in shared memory. A longer slate
-// is taken in passes (ops._launch): each pass gets the previous pass's last
+// is taken in passes (ops._launch_topk): each pass gets the previous pass's last
 // entry as a per-query floor and admits only candidates lexicographically
 // after it. A candidate's d2 does not depend on the split of the candidate
 // axis (each is one FMA chain over d in a fixed order, and |q|^2 one fixed
@@ -70,7 +62,6 @@
 // Candidate ids are unique within a launch, so the lexicographic order is a
 // strict total order on real entries and the slate does not depend on the
 // order in which blocks or lanes offer candidates.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -84,9 +75,6 @@ constexpr int MERGE_WARPS = 8;
 constexpr int PASS_SLATE = 128;  // the most slate entries one pass holds
 constexpr int EMPTY_ID = 2147483647;
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ bool lex_less(float av, int ai, float bv, int bi) {
   return av < bv || (av == bv && ai < bi);
@@ -170,13 +158,12 @@ __device__ __forceinline__ void block_qn2(const float* __restrict__ q, int m, in
 }
 
 // The warp's 2 x 4 register tile of one candidate tile: acc[i][j] = <q, x>
-// of the warp's query 2 warp + i and the lane's candidate lane + 32 j (table
-// row rowid[.], none where it is < 0), and with NORMS xacc[j] = |x|^2 of
-// that candidate from the same staged values. The tile is staged in shared
-// memory DK columns at a time; every thread of the block takes part.
-template <typename T, bool NORMS>
+// of the warp's query 2 warp + i and the lane's candidate lane + 32 j (row
+// rowid[.], none where it is < 0), and xacc[j] = |x|^2 of that candidate
+// from the same staged values. The tile is staged in shared memory DK
+// columns at a time; every thread of the block takes part.
 __device__ __forceinline__ void tile_dots(const float* __restrict__ q, int m, int m0, int d,
-                                          const T* __restrict__ x, const int* rowid,
+                                          const float* __restrict__ x, const int* rowid,
                                           float (*qs)[DK], float (*xs)[DK + 1], int tid,
                                           int lane, int warp, float (&acc)[2][4],
                                           float (&xacc)[4]) {
@@ -196,7 +183,7 @@ __device__ __forceinline__ void tile_dots(const float* __restrict__ q, int m, in
       const int cc = e / DK, kk = e % DK;
       const int r = rowid[cc];
       const int k = k0 + kk;
-      xs[cc][kk] = (r >= 0 && k < d) ? to_f32(x[(size_t)r * d + k]) : 0.f;
+      xs[cc][kk] = (r >= 0 && k < d) ? x[(size_t)r * d + k] : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -208,7 +195,7 @@ __device__ __forceinline__ void tile_dots(const float* __restrict__ q, int m, in
         const float b = xs[lane + 32 * j][kk];
         acc[0][j] = fmaf(a0, b, acc[0][j]);
         acc[1][j] = fmaf(a1, b, acc[1][j]);
-        if (NORMS) xacc[j] = fmaf(b, b, xacc[j]);
+        xacc[j] = fmaf(b, b, xacc[j]);
       }
     }
   }
@@ -221,11 +208,10 @@ __device__ __forceinline__ float screen_d2(float qn2, float xn2, float g) {
 
 // floor_v/floor_i (m,) may be null; where given, only candidates
 // lexicographically after (floor_v[i], floor_i[i]) enter query i's slate.
-template <typename T, int SMAX, bool NORMS>
+template <int SMAX>
 __global__ void __launch_bounds__(NTHREADS)
-screen_partial_kernel(const float* __restrict__ q, int m, int d, const T* __restrict__ x,
-                      const float* __restrict__ xn2, const int* __restrict__ rows, int n,
-                      int s, int chunk, int n_splits,
+screen_partial_kernel(const float* __restrict__ q, int m, int d, const float* __restrict__ x,
+                      int n, int s, int chunk, int n_splits,
                       const float* __restrict__ floor_v, const int* __restrict__ floor_i,
                       float* __restrict__ part_v, int* __restrict__ part_i,
                       float* __restrict__ qn2_out) {
@@ -257,11 +243,11 @@ screen_partial_kernel(const float* __restrict__ q, int m, int d, const T* __rest
     __syncthreads();  // the previous tile's selection is done with dt and rowid
     if (tid < TN) {
       const int c = c0 + tid;
-      rowid[tid] = (c < c_end) ? (rows != nullptr ? rows[c] : c) : -1;
+      rowid[tid] = (c < c_end) ? c : -1;
     }
     float acc[2][4];
-    float xacc[4];  // |x|^2 of the lane's candidates (NORMS only)
-    tile_dots<T, NORMS>(q, m, m0, d, x, rowid, qs, xs, tid, lane, warp, acc, xacc);
+    float xacc[4];  // |x|^2 of the lane's candidates
+    tile_dots(q, m, m0, d, x, rowid, qs, xs, tid, lane, warp, acc, xacc);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int qi = 2 * warp + i;
@@ -270,7 +256,7 @@ screen_partial_kernel(const float* __restrict__ q, int m, int d, const T* __rest
         const int cc = lane + 32 * j;
         const int r = rowid[cc];
         float v = INFINITY;
-        if (r >= 0) v = screen_d2(qn2s[qi], NORMS ? xacc[j] : xn2[r], acc[i][j]);
+        if (r >= 0) v = screen_d2(qn2s[qi], xacc[j], acc[i][j]);
         dt[qi][cc] = v;
       }
     }
@@ -340,15 +326,13 @@ slate_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ par
   }
 }
 
-template <typename T, int SMAX, bool NORMS>
-int launch_t(const float* q, int m, int d, const T* x, const float* xn2, const int* rows,
-             int n, int s, int chunk, int n_splits, const float* floor_v,
-             const int* floor_i, float* part_v, int* part_i, float* qn2, float* out_v,
-             int* out_i, cudaStream_t stream) {
+template <int SMAX>
+int launch_t(const float* q, int m, int d, const float* x, int n, int s, int chunk,
+             int n_splits, const float* floor_v, const int* floor_i, float* part_v,
+             int* part_i, float* qn2, float* out_v, int* out_i, cudaStream_t stream) {
   dim3 grid(n_splits, (m + BM - 1) / BM);
-  screen_partial_kernel<T, SMAX, NORMS><<<grid, NTHREADS, 0, stream>>>(
-      q, m, d, x, xn2, rows, n, s, chunk, n_splits, floor_v, floor_i, part_v, part_i,
-      qn2);
+  screen_partial_kernel<SMAX><<<grid, NTHREADS, 0, stream>>>(
+      q, m, d, x, n, s, chunk, n_splits, floor_v, floor_i, part_v, part_i, qn2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   slate_merge_kernel<SMAX><<<m, MERGE_WARPS * 32, 0, stream>>>(part_v, part_i, n_splits, s,
@@ -356,15 +340,12 @@ int launch_t(const float* q, int m, int d, const T* x, const float* xn2, const i
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool NORMS = false>
-int launch(const float* q, int m, int d, const T* x, const float* xn2, const int* rows,
-           int n, int s, int chunk, int n_splits, const float* floor_v,
-           const int* floor_i, float* part_v, int* part_i, float* qn2, float* out_v,
-           int* out_i, cudaStream_t stream) {
-#define COCONUT_LAUNCH(SMAX)                                                             \
-  return launch_t<T, SMAX, NORMS>(q, m, d, x, xn2, rows, n, s, chunk, n_splits,  \
-                                  floor_v, floor_i, part_v, part_i, qn2, out_v, out_i,  \
-                                  stream)
+int launch(const float* q, int m, int d, const float* x, int n, int s, int chunk,
+           int n_splits, const float* floor_v, const int* floor_i, float* part_v,
+           int* part_i, float* qn2, float* out_v, int* out_i, cudaStream_t stream) {
+#define COCONUT_LAUNCH(SMAX)                                                            \
+  return launch_t<SMAX>(q, m, d, x, n, s, chunk, n_splits, floor_v, floor_i, part_v,   \
+                        part_i, qn2, out_v, out_i, stream)
   if (s <= 16) COCONUT_LAUNCH(16);
   if (s <= 32) COCONUT_LAUNCH(32);
   if (s <= 64) COCONUT_LAUNCH(64);
@@ -411,7 +392,7 @@ min_ed_kernel(const float* __restrict__ q, int m, int d, const float* __restrict
     }
     float acc[2][4];
     float xacc[4];
-    tile_dots<float, true>(q, m, m0, d, x, rowid, qs, xs, tid, lane, warp, acc, xacc);
+    tile_dots(q, m, m0, d, x, rowid, qs, xs, tid, lane, warp, acc, xacc);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -463,46 +444,16 @@ void coconut_layout(int* out) {
   out[2] = TN;
 }
 
-// f32 (dtype 0) or bf16 (dtype 1) table. rows may be null (candidates are
-// the table rows 0..n-1), floor_v/floor_i too (no floor). Returns the CUDA
-// error code of the launches.
-int coconut_screen_select(int dtype, const void* q, int m, int d, const void* x,
-                          const void* xn2, const void* rows, int n, int s, int chunk,
-                          int n_splits, const void* floor_v, const void* floor_i,
-                          void* part_v, void* part_i, void* qn2, void* out_v, void* out_i,
-                          void* stream) {
-  const float* qf = static_cast<const float*>(q);
-  const float* n2 = static_cast<const float*>(xn2);
-  const int* r = static_cast<const int*>(rows);
-  const float* fv = static_cast<const float*>(floor_v);
-  const int* fi = static_cast<const int*>(floor_i);
-  float* pv = static_cast<float*>(part_v);
-  int* pi = static_cast<int*>(part_i);
-  float* qn = static_cast<float*>(qn2);
-  float* ov = static_cast<float*>(out_v);
-  int* oi = static_cast<int*>(out_i);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(qf, m, d, static_cast<const float*>(x), n2, r, n, s, chunk,
-                         n_splits, fv, fi, pv, pi, qn, ov, oi, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(qf, m, d, static_cast<const __nv_bfloat16*>(x), n2, r, n, s,
-                                 chunk, n_splits, fv, fi, pv, pi, qn, ov, oi, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 // topk_ed: f32 candidates x (n, d) taken in order (no row list), |x|^2
 // summed in the tile. qn2 receives |q|^2 as a by-product.
 int coconut_topk_ed(const void* q, int m, int d, const void* x, int n, int s, int chunk,
                     int n_splits, const void* floor_v, const void* floor_i, void* part_v,
                     void* part_i, void* qn2, void* out_v, void* out_i, void* stream) {
-  return launch<float, true>(static_cast<const float*>(q), m, d, static_cast<const float*>(x),
-                             nullptr, nullptr, n, s, chunk, n_splits,
-                             static_cast<const float*>(floor_v),
-                             static_cast<const int*>(floor_i), static_cast<float*>(part_v),
-                             static_cast<int*>(part_i), static_cast<float*>(qn2),
-                             static_cast<float*>(out_v), static_cast<int*>(out_i),
-                             static_cast<cudaStream_t>(stream));
+  return launch(static_cast<const float*>(q), m, d, static_cast<const float*>(x), n, s, chunk,
+                n_splits, static_cast<const float*>(floor_v), static_cast<const int*>(floor_i),
+                static_cast<float*>(part_v), static_cast<int*>(part_i),
+                static_cast<float*>(qn2), static_cast<float*>(out_v), static_cast<int*>(out_i),
+                static_cast<cudaStream_t>(stream));
 }
 
 // min_ed: per query the lexicographic (d2, row) minimum over x (n, d) f32,

@@ -26,7 +26,10 @@
 // Here a block stages R whole rows in shared memory with coalesced loads
 // (neighbouring threads on neighbouring addresses), each segment padded by one
 // float so the threads that then sum one segment each hit distinct banks; one
-// thread per (row, segment) sums its segment. SAX-pack is one thread per row:
+// thread per (row, segment) sums its segment. A series whose padded row does
+// not fit the block's shared memory (n over about 12,000 values) is summed
+// from device memory instead, one thread per (row, segment) in the same
+// order, so any length gives the same bits. SAX-pack is one thread per row:
 // a symbol per segment, its bits or-ed into the row's words, which stay in
 // registers (an unrolled select over at most MAX_WORDS words).
 #include <cuda_runtime.h>
@@ -36,16 +39,28 @@ namespace {
 
 constexpr int PAA_THREADS = 256;
 constexpr int PAA_MAX_ROWS = 32;            // rows a block stages at most
-constexpr int PAA_SMEM_FLOATS = 48 * 1024 / 4;  // static shared memory limit
+constexpr int PAA_SMEM_FLOATS = 48 * 1024 / 4;  // staged floats a block holds at most
 constexpr int SAX_THREADS = 256;
 constexpr int MAX_BREAKPOINTS = 255;        // 2^8 - 1: card_bits <= 8
 constexpr int MAX_WORDS = 8;                // w * card_bits <= 256 key bits
 
+// STAGED: rows_per_block rows a block, staged in shared memory; else one
+// thread per (row, segment) over the whole batch, reading device memory.
+template <bool STAGED>
 __global__ void __launch_bounds__(PAA_THREADS)
 paa_kernel(const float* __restrict__ x, int b, int n, int w, int rows_per_block,
            float* __restrict__ out) {
-  extern __shared__ float tile[];  // rows_per_block * w * (L + 1)
   const int L = n / w;
+  if constexpr (!STAGED) {
+    const size_t e = (size_t)blockIdx.x * PAA_THREADS + threadIdx.x;
+    if (e >= (size_t)b * w) return;
+    const float* seg = x + e * L;  // segment e % w of row e / w
+    float acc = seg[0];
+    for (int j = 1; j < L; ++j) acc = __fadd_rn(acc, seg[j]);
+    out[e] = __fdiv_rn(acc, static_cast<float>(L));
+    return;
+  }
+  extern __shared__ float tile[];  // rows_per_block * w * (L + 1)
   const int row0 = blockIdx.x * rows_per_block;
   const int nrows = min(rows_per_block, b - row0);
   const float* src = x + (size_t)row0 * n;
@@ -102,25 +117,29 @@ sax_pack_kernel(const float* __restrict__ p, int b, int w, const float* __restri
 
 extern "C" {
 
-// The limits the host wrapper checks before a launch: out[0] the floats of
-// one staged PAA row (w * (L + 1)) that fit in a block, out[1] the most key
-// words, out[2] the most breakpoints.
+// The limits the host wrapper checks before a sax_pack launch: out[0] the
+// most key words, out[1] the most breakpoints.
 void coconut_summarize_layout(int* out) {
-  out[0] = PAA_SMEM_FLOATS;
-  out[1] = MAX_WORDS;
-  out[2] = MAX_BREAKPOINTS;
+  out[0] = MAX_WORDS;
+  out[1] = MAX_BREAKPOINTS;
 }
 
 // x (b, n) f32 -> out (b, w) f32. Returns the CUDA error code of the launch.
 int coconut_paa(const void* x, int b, int n, int w, void* out, void* stream) {
   if (b <= 0 || w <= 0 || n % w != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xf = static_cast<const float*>(x);
+  auto* of = static_cast<float*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int row_floats = w * (n / w + 1);
-  if (row_floats > PAA_SMEM_FLOATS) return static_cast<int>(cudaErrorInvalidValue);
+  if (row_floats > PAA_SMEM_FLOATS) {  // too long to stage: from device memory
+    const size_t grid = ((size_t)b * w + PAA_THREADS - 1) / PAA_THREADS;
+    paa_kernel<false><<<static_cast<unsigned>(grid), PAA_THREADS, 0, st>>>(xf, b, n, w, 0, of);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int rows = min(PAA_MAX_ROWS, PAA_SMEM_FLOATS / row_floats);
   const int grid = (b + rows - 1) / rows;
-  paa_kernel<<<grid, PAA_THREADS, rows * row_floats * sizeof(float),
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), b, n, w, rows, static_cast<float*>(out));
+  paa_kernel<true><<<grid, PAA_THREADS, rows * row_floats * sizeof(float), st>>>(
+      xf, b, n, w, rows, of);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,8 @@
 """Public wrappers around the hand-written kernels.
 
 Dispatch follows the device of the tensors: a CUDA tensor goes to the CUDA
-kernel (``csrc/screen_select.cu`` for the f32 and bf16 screen, ``topk_ed``
-and ``min_ed``, ``csrc/screen_quant.cu`` for the int8 screen,
+kernel (``csrc/screen_fused.cu`` for the f32, bf16 and int8 screens,
+``csrc/screen_select.cu`` for ``topk_ed`` and ``min_ed``,
 ``csrc/summarize.cu`` for ``paa`` and ``sax_pack``,
 ``csrc/lower_bound.cu`` for ``mindist``; built on first use by
 :mod:`._build`) or the call raises; a CPU tensor goes to the plain PyTorch
@@ -156,9 +156,7 @@ def _screen(name: str, q, x, scale, xn2, k: int, rows):
         return vals, idxs, qn2
     if dev.type != "cuda":
         raise ValueError(f"no screen_select for device {dev}")
-    if name == "screen_select_quant":
-        return _launch_quant(q, x, scale, xn2, k, kk, rows, n)
-    return _launch(name, q, x, xn2, k, kk, rows, n)
+    return _launch_screen(name, q, x, scale, xn2, k, kk, rows, n)
 
 
 def slate_in_passes(step, kk: int, width: int):
@@ -193,25 +191,20 @@ def _prepare(q, rows, tensors):
     return q.contiguous(), rows
 
 
-def _launch(name, q, x, xn2, k, kk, rows, n):
-    """The CUDA kernels of screen_select and topk_ed: partial slates over
-    candidate splits, then a merge; in passes of ``pass_slate`` entries
-    where the slate is longer."""
+def _launch_topk(q, x, k, kk, n):
+    """The CUDA kernels of topk_ed: partial slates over candidate splits,
+    then a merge; in passes of ``pass_slate`` entries where the slate is
+    longer."""
     from . import _build  # builds the library on first use
 
     layout = _build.layout()
-    if name == "screen_select":
-        code = {torch.float32: 0, torch.bfloat16: 1}.get(x.dtype)
-        if code is None:
-            raise TypeError(f"screen_select takes f32 or bf16 tables, not {x.dtype}")
-    q, rows = _prepare(q, rows, ((x, "x"), (xn2, "xn2")))
+    q = q.contiguous()
     dev = q.device
     m, d = q.shape
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     qn2 = torch.empty((m,), **f32)
     stream = _stream(dev)
-    rows_ptr = None if rows is None else rows.data_ptr()
     lib = _build.library()
 
     def one_pass(s, floor):
@@ -222,36 +215,33 @@ def _launch(name, q, x, xn2, k, kk, rows, n):
         out_i = torch.empty((m, s), **i32)
         fv, fi = (None, None) if floor is None else (floor[0].data_ptr(),
                                                      floor[1].data_ptr())
-        tail = (rows_ptr, n, s, chunk, n_splits, fv, fi, part_v.data_ptr(),
-                part_i.data_ptr(), qn2.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                stream)
-        if name == "topk_ed":
-            rc = lib.coconut_topk_ed(q.data_ptr(), m, d, x.data_ptr(), *tail[1:])
-        else:
-            rc = lib.coconut_screen_select(code, q.data_ptr(), m, d, x.data_ptr(),
-                                           xn2.data_ptr(), *tail)
+        rc = lib.coconut_topk_ed(q.data_ptr(), m, d, x.data_ptr(), n, s, chunk, n_splits, fv,
+                                 fi, part_v.data_ptr(), part_i.data_ptr(), qn2.data_ptr(),
+                                 out_v.data_ptr(), out_i.data_ptr(), stream)
         if rc != 0:
-            raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
-        LAUNCHES[name] += 1
+            raise RuntimeError(f"topk_ed kernel launch failed with CUDA error {rc}")
+        LAUNCHES["topk_ed"] += 1
         return out_v, out_i, qn2
 
     out_v, out_i, qn2 = slate_in_passes(one_pass, kk, layout["pass_slate"])
-    vals, idxs = _finish(out_v, out_i, n, k)
-    return vals, idxs, qn2
+    return _finish(out_v, out_i, n, k)
 
 
-def _launch_quant(q, x, scale, xn2, k, kk, rows, n):
-    """The CUDA kernel of screen_select_quant: one launch per pass, whose
+_SCREEN_DTYPES = {"screen_select": {torch.float32: 0, torch.bfloat16: 1},
+                  "screen_select_quant": {torch.int8: None}}
+
+
+def _launch_screen(name, q, x, scale, xn2, k, kk, rows, n):
+    """The CUDA kernel of the three screens (f32 and bf16 tables for
+    screen_select, int8 for screen_select_quant): one launch per pass, whose
     last block of each query block merges the partial slates itself; in
     passes of ``pass_slate`` entries where the slate is longer."""
     from . import _build  # builds the library on first use
 
-    layout = _build.layout()["quant"]
-    if x.dtype != torch.int8:
-        raise TypeError(f"screen_select_quant takes int8 tables, not {x.dtype}")
-    if x.shape[1] > layout["max_d"]:
-        raise ValueError(f"rows of {x.shape[1]} values exceed the int8 screen's "
-                         f"staging ({layout['max_d']})")
+    if x.dtype not in _SCREEN_DTYPES[name]:
+        kinds = " or ".join(str(t).removeprefix("torch.") for t in _SCREEN_DTYPES[name])
+        raise TypeError(f"{name} takes {kinds} tables, not {x.dtype}")
+    layout = _build.layout()["screen"]
     q, rows = _prepare(q, rows, ((x, "x"), (xn2, "xn2"), (scale, "scale")))
     dev = q.device
     m, d = q.shape
@@ -271,13 +261,17 @@ def _launch_quant(q, x, scale, xn2, k, kk, rows, n):
         out_i = torch.empty((m, s), dtype=torch.int32, device=dev)
         fv, fi = (None, None) if floor is None else (floor[0].data_ptr(),
                                                      floor[1].data_ptr())
-        rc = lib.coconut_screen_select_quant(
-            q.data_ptr(), m, d, x.data_ptr(), scale.data_ptr(), xn2.data_ptr(), rows_ptr, n,
-            s, chunk, n_splits, fv, fi, scratch.data_ptr(), qn2.data_ptr(), out_v.data_ptr(),
-            out_i.data_ptr(), stream)
+        tail = (rows_ptr, n, s, chunk, n_splits, fv, fi, scratch.data_ptr(), qn2.data_ptr(),
+                out_v.data_ptr(), out_i.data_ptr(), stream)
+        if name == "screen_select":
+            rc = lib.coconut_screen_select(_SCREEN_DTYPES[name][x.dtype], q.data_ptr(), m, d,
+                                           x.data_ptr(), xn2.data_ptr(), *tail)
+        else:
+            rc = lib.coconut_screen_select_quant(q.data_ptr(), m, d, x.data_ptr(),
+                                                 scale.data_ptr(), xn2.data_ptr(), *tail)
         if rc != 0:
-            raise RuntimeError(f"screen_select_quant kernel launch failed with CUDA error {rc}")
-        LAUNCHES["screen_select_quant"] += 1
+            raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+        LAUNCHES[name] += 1
         return out_v, out_i, qn2
 
     out_v, out_i, qn2 = slate_in_passes(one_pass, kk, layout["pass_slate"])
@@ -356,7 +350,7 @@ def topk_ed(q: torch.Tensor, x: torch.Tensor,
         return _finish(vals, idxs, n, k)
     if dev.type != "cuda":
         raise ValueError(f"no topk_ed for device {dev}")
-    return _launch("topk_ed", q, x.contiguous(), None, k, kk, None, n)[:2]
+    return _launch_topk(q, x.contiguous(), k, kk, n)
 
 
 def topk_ed_bucketed(q: torch.Tensor, x: torch.Tensor,
@@ -429,10 +423,6 @@ def paa(x: torch.Tensor, cfg: SummarizationConfig) -> torch.Tensor:
         raise ValueError(f"no paa for device {dev}")
     from . import _build
 
-    row_floats = w * (x.shape[1] // w + 1)
-    if row_floats > _build.layout()["paa_row_floats"]:
-        raise ValueError(f"series of length {x.shape[1]} exceed the paa kernel's "
-                         "staging tile")
     x = x.contiguous()
     out = torch.empty((b, w), dtype=torch.float32, device=dev)
     rc = _build.library().coconut_paa(x.data_ptr(), b, x.shape[1], w,

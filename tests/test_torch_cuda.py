@@ -117,50 +117,87 @@ def test_engine_answers_do_not_depend_on_the_device(cuda, dtype):
 
 
 # ---------------------------------------------------------------------------
-# the int8 screen (csrc/screen_quant.cu): copy units, merge, streams, launches
+# the fused screens (csrc/screen_fused.cu): widths, copy units, merge,
+# streams, launches
 # ---------------------------------------------------------------------------
-def _int8_case(cuda, rng, m, n, d, offset=0):
-    """Queries and an int8 table whose rows start ``offset`` bytes past an
-    aligned base (a view into a larger buffer)."""
+_NAME = {"int8": "screen_select_quant", "f32": "screen_select", "bf16": "screen_select"}
+_DEVICE_KERNEL = {"int8": "screen_quant_kernel", "f32": "screen_dense_kernel",
+                  "bf16": "screen_dense_kernel"}
+
+
+def _table_case(cuda, rng, m, n, d, dtype="int8", offset=0):
+    """Queries and a table of ``dtype`` whose rows start ``offset`` bytes
+    past an aligned base (a view into a larger buffer): (q, x, scale or
+    None, xn2)."""
     q = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(cuda)
-    xq, scale, xn2 = _quantize(rng.standard_normal((n, d)).astype(np.float32))
-    buf = torch.empty(n * d + 16, dtype=torch.int8, device=cuda)
-    x = buf[offset:offset + n * d].view(n, d)
-    x.copy_(torch.from_numpy(xq).to(cuda))
-    return q, x, torch.from_numpy(scale).to(cuda), torch.from_numpy(xn2).to(cuda)
+    xf = rng.standard_normal((n, d)).astype(np.float32)
+    if dtype == "int8":
+        xq, scale, xn2 = _quantize(xf)
+        xt, scale, xn2 = (torch.from_numpy(a).to(cuda) for a in (xq, scale, xn2))
+    else:
+        xt = torch.from_numpy(xf).to(cuda)
+        xt = xt.to(torch.bfloat16) if dtype == "bf16" else xt
+        scale, xn2 = None, (xt.float() * xt.float()).sum(-1)
+    elt = xt.element_size()
+    assert offset % elt == 0
+    buf = torch.empty(n * d + 16 // elt, dtype=xt.dtype, device=cuda)
+    x = buf[offset // elt:offset // elt + n * d].view(n, d)
+    x.copy_(xt)
+    return q, x, scale, xn2
 
 
-@pytest.mark.parametrize("d,offset", [(100, 1), (100, 0), (256, 4), (300, 0), (600, 8),
-                                      (2048, 0)])
-def test_cuda_quant_any_width_and_alignment(cuda, d, offset):
-    """Rows of any width (several staged slices above 256) on a table whose
-    base is 16-, 4- or 1-byte aligned: the same slate as the plain version."""
+def _screen(q, x, scale, xn2, k, rows=None):
+    if scale is None:
+        return ops.screen_select(q, x, xn2, k, rows=rows)
+    return ops.screen_select_quant(q, x, scale, xn2, k, rows=rows)
+
+
+def _plain(q, x, scale, xn2, k, rows=None):
+    if rows is not None:
+        r = rows.long()
+        x, xn2, scale = x[r], xn2[r], None if scale is None else scale[r]
+    if scale is None:
+        return ref.screen_select_ref(q, x, xn2, k)
+    return ref.screen_select_quant_ref(q, x, scale, xn2, k)
+
+
+@pytest.mark.parametrize("dtype,d,offset", [
+    ("int8", 100, 1), ("int8", 100, 0), ("int8", 256, 4), ("int8", 300, 0),
+    ("int8", 600, 8), ("int8", 2048, 0), ("f32", 100, 4), ("f32", 600, 0),
+    ("bf16", 100, 4), ("bf16", 600, 0)])
+def test_cuda_quant_any_width_and_alignment(cuda, dtype, d, offset):
+    """Rows of any width (several staged slices above 256 bytes) on a table
+    whose base is 16-, 4- or 1-byte aligned, for the int8, f32 and bf16
+    screens: the same slate as the plain version."""
     rng = np.random.default_rng(d + offset)
     m, n, k = 19, 4099, 13
-    q, x, scale, xn2 = _int8_case(cuda, rng, m, n, d, offset)
+    q, x, scale, xn2 = _table_case(cuda, rng, m, n, d, dtype, offset)
     assert x.data_ptr() % 16 == offset % 16
     rows = torch.from_numpy(rng.permutation(n)[: n - 5].astype(np.int32)).to(cuda)
-    r = rows.long()
     ops.reset_launches()
-    v, i, qn2 = ops.screen_select_quant(q, x, scale, xn2, k, rows=rows)
-    pfull, pord, pqn2 = ref.screen_select_quant_ref(q, x[r], scale[r], xn2[r], r.numel())
+    v, i, qn2 = _screen(q, x, scale, xn2, k, rows)
+    pfull, pord, pqn2 = _plain(q, x, scale, xn2, n - 5, rows)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["screen_select_quant"] == 1
+    assert ops.LAUNCHES[_NAME[dtype]] == 1
     _hold_slate(v, i, pfull, pord, k, 1e-5 * float(pqn2.max() + xn2.max()))
     np.testing.assert_allclose(qn2.cpu().numpy(), pqn2.cpu().numpy(), rtol=1e-5)
 
 
-def test_cuda_quant_refuses_rows_wider_than_its_staging(cuda):
-    """Queries of the widest rows fill the kernel's shared memory: wider
-    rows raise instead of launching."""
-    d = 2049
-    q = torch.zeros((2, d), device=cuda)
-    x = torch.zeros((10, d), dtype=torch.int8, device=cuda)
-    ones = torch.ones(10, device=cuda)
+@pytest.mark.parametrize("d", [2049, 4096])
+@pytest.mark.parametrize("dtype", ["int8", "f32", "bf16"])
+def test_cuda_screens_take_rows_wider_than_the_query_staging(cuda, dtype, d):
+    """Rows too wide for a block to stage its queries whole (the queries
+    then come a slice a stage, beside the rows): the same slate as the
+    plain version, through one kernel launch."""
+    rng = np.random.default_rng(d)
+    q, x, scale, xn2 = _table_case(cuda, rng, 21, 3001, d, dtype)
     ops.reset_launches()
-    with pytest.raises(ValueError, match="staging"):
-        ops.screen_select_quant(q, x, ones, ones, 3)
-    assert ops.LAUNCHES["screen_select_quant"] == 0
+    v, i, qn2 = _screen(q, x, scale, xn2, 13)
+    pfull, pord, pqn2 = _plain(q, x, scale, xn2, x.shape[0])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[_NAME[dtype]] == 1
+    _hold_slate(v, i, pfull, pord, 13, 1e-5 * float(pqn2.max() + xn2.max()))
+    np.testing.assert_allclose(qn2.cpu().numpy(), pqn2.cpu().numpy(), rtol=1e-5)
 
 
 @pytest.mark.parametrize("k", [13, 200])
@@ -178,51 +215,57 @@ def test_cuda_quant_equal_rows_keep_the_lower_positions(cuda, k):
         assert (v == v[0, 0]).all()
 
 
-def test_cuda_quant_two_streams_at_once(cuda):
+@pytest.mark.parametrize("dtype", ["int8", "f32", "bf16"])
+def test_cuda_quant_two_streams_at_once(cuda, dtype):
     """Two passes issued on two streams at once: each equals the same call
     made alone, bit for bit, and its plain version."""
     rng = np.random.default_rng(11)
-    cases = [_int8_case(cuda, rng, 16, 30000, 256), _int8_case(cuda, rng, 40, 20000, 128)]
-    alone = [ops.screen_select_quant(q, x, sc, n2, 13) for q, x, sc, n2 in cases]
+    cases = [_table_case(cuda, rng, 16, 30000, 256, dtype),
+             _table_case(cuda, rng, 40, 20000, 128, dtype)]
+    alone = [_screen(*c, 13) for c in cases]
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream(), torch.cuda.Stream()]
     together = []
-    for (q, x, sc, n2), st in zip(cases, streams):
+    for c, st in zip(cases, streams):
         st.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(st):
-            together.append(ops.screen_select_quant(q, x, sc, n2, 13))
+            together.append(_screen(*c, 13))
     torch.cuda.synchronize()
-    for (q, x, sc, n2), a, b in zip(cases, alone, together):
+    for c, a, b in zip(cases, alone, together):
         assert torch.equal(a[1], b[1])
         assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
-        pfull, pord, pqn2 = ref.screen_select_quant_ref(q, x, sc, n2, x.shape[0])
-        _hold_slate(b[0], b[1], pfull, pord, 13, 1e-5 * float(pqn2.max() + n2.max()))
+        pfull, pord, pqn2 = _plain(*c, c[1].shape[0])
+        _hold_slate(b[0], b[1], pfull, pord, 13, 1e-5 * float(pqn2.max() + c[3].max()))
 
 
 @pytest.mark.parametrize("k", [13, 200])
-def test_cuda_quant_one_launch_per_pass(cuda, k):
-    """One screen_quant_kernel per pass and no separate merge kernel: the
+@pytest.mark.parametrize("dtype", ["int8", "f32", "bf16"])
+def test_cuda_quant_one_launch_per_pass(cuda, dtype, k):
+    """One fused kernel launch per pass (screen_quant_kernel for int8,
+    screen_dense_kernel for f32 and bf16) and no separate merge kernel: the
     launch count says so, and the profiler's trace holds no other kernel of
     the screens (it may drop launches of a short run, never add them)."""
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(12)
-    q, x, scale, xn2 = _int8_case(cuda, rng, 16, 50000, 256)
-    ops.screen_select_quant(q, x, scale, xn2, k)
+    case = _table_case(cuda, rng, 16, 50000, 256, dtype)
+    _screen(*case, k)
     torch.cuda.synchronize()
     calls, passes = 4, -(-k // ops.pass_slate())
     ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            ops.screen_select_quant(q, x, scale, xn2, k)
+            _screen(*case, k)
             torch.cuda.synchronize()
-    assert ops.LAUNCHES["screen_select_quant"] == calls * passes
+    assert ops.LAUNCHES[_NAME[dtype]] == calls * passes
     names = collections.Counter()
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CPU"):
             names[e.key] += e.count
-    quant = sum(c for name, c in names.items() if "screen_quant_kernel" in name)
-    assert 0 < quant <= calls * passes, names
+    fused = sum(c for name, c in names.items() if _DEVICE_KERNEL[dtype] in name)
+    assert 0 < fused <= calls * passes, names
+    other = {"screen_quant_kernel", "screen_dense_kernel"} - {_DEVICE_KERNEL[dtype]}
+    assert not any(o in name for name in names for o in other), names
     assert not any("slate_merge" in name or "screen_partial" in name for name in names), names
 
 
@@ -275,10 +318,13 @@ def test_cuda_topk_ed_ties_empty_and_cap(cuda):
 
 
 @pytest.mark.parametrize("b,n,w,c", [(1000, 256, 16, 8), (257, 96, 12, 6),
-                                     (33, 64, 8, 4), (5, 128, 16, 2)])
+                                     (33, 64, 8, 4), (5, 128, 16, 2),
+                                     (40, 16384, 16, 8), (7, 65536, 16, 8)])
 def test_cuda_summarize_matches_plain(cuda, b, n, w, c):
     """PAA sums in the plain version's order, so values, symbols and keys
-    are bitwise the plain version's; keys equal the host's interleave."""
+    are bitwise the plain version's; keys equal the host's interleave.
+    Series too long to stage in a block's shared memory (16,384 and 65,536
+    values) are summed from device memory, in the same order."""
     from repro_torch.core import sortable, summarization
 
     cfg = summarization.SummarizationConfig(series_len=n, n_segments=w, card_bits=c)

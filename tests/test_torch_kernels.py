@@ -13,6 +13,9 @@ of slates longer than one kernel pass runs over the plain versions here.
 The CUDA kernels are held against the plain versions in
 ``test_torch_cuda.py``.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -312,7 +315,7 @@ def _near_breakpoint(x, p, c):
 
 
 @pytest.mark.parametrize("b,n,w", [(64, 128, 16), (100, 256, 16), (8, 64, 8),
-                                   (257, 96, 12)])
+                                   (257, 96, 12), (4, 16384, 16)])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_paa_matches_reference(b, n, w, dtype, rng):
     rc = rsum.SummarizationConfig(series_len=n, n_segments=w, card_bits=8)
@@ -670,3 +673,96 @@ def test_split_merge_equals_the_one_shot_slate(case, rule, seed):
     assert torch.equal(torch.tensor([[e[1] for e in r] for r in got], dtype=torch.int32),
                        want_i)
     assert torch.equal(torch.tensor([[e[0] for e in r] for r in got]), want_v)
+
+
+# ---------------------------------------------------------------------------
+# the fused screen's layout (csrc/screen_fused.cu): its splits and its staging
+# ---------------------------------------------------------------------------
+FUSED_CU = Path(ops.__file__).resolve().parent / "csrc" / "screen_fused.cu"
+
+
+def _fused_constants():
+    """The ``constexpr int`` constants of the fused screen's source."""
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", FUSED_CU.read_text())}
+
+
+@pytest.mark.parametrize("s", [13, 128])
+@pytest.mark.parametrize("case", ["random", "ties", "floor"])
+@pytest.mark.parametrize("shape", ["serving", "full"])
+def test_minima_walk_over_the_splits_ops_makes(shape, case, s, monkeypatch):
+    """The fused screen's merge rule over the candidate splits that
+    ``ops._splits`` makes for the kernel's layout, with 8 SMs standing in
+    for the card's 132: 16 queries over 2,048 gathered rows (one tile a
+    split, as at the serving pass's 16,384 rows on 132 SMs) and 64 queries
+    over 8,292 rows (several tiles a split and a short last one, as over
+    the full table). The merged slate equals the one-shot slate."""
+    c = _fused_constants()
+    layout = {"tile": c["TN"], "query_block": c["BM"], "pass_slate": c["PASS_SLATE"]}
+    cpu = torch.device("cpu")
+    monkeypatch.setitem(ops._SM_COUNT, cpu, 8)
+    m, n = (16, 2048) if shape == "serving" else (64, 8292)
+    chunk, n_splits = ops._splits(cpu, n, m, s, layout)
+    assert chunk % layout["tile"] == 0 and (n_splits - 1) * chunk < n <= n_splits * chunk
+    if shape == "serving":
+        assert chunk == layout["tile"]
+    else:
+        assert chunk > layout["tile"] and n % chunk
+    bounds = [min(n, j * chunk) for j in range(n_splits + 1)]
+    rng = np.random.default_rng(len(case) + s)
+    rows = 4  # the merge is per query: a few rows of the batch
+    d2 = rng.standard_normal((rows, n)).astype(np.float32)
+    if case == "ties":
+        d2 = rng.integers(0, 4, (rows, n)).astype(np.float32)
+    d2 = torch.from_numpy(d2)
+    floor = None
+    if case == "floor":
+        sv, si = ref._lex_topk(d2, 40)
+        floor = (sv[:, -1], si[:, -1])
+    want_v, want_i = ref._lex_topk(d2, s, floor)
+    got = _minima_walk_merge(d2, s, bounds, floor)
+    assert torch.equal(torch.tensor([[e[1] for e in r] for r in got], dtype=torch.int32),
+                       want_i)
+    assert torch.equal(torch.tensor([[e[0] for e in r] for r in got]), want_v)
+
+
+def _xs_off(row, kk, ksp):
+    """``xs_off`` of csrc/screen_fused.cu: the byte of a staged slice that
+    holds byte kk of tile row ``row``."""
+    return row * ksp + ((((kk >> 4) ^ row) & 7 | (kk >> 4) & ~7) << 4) + (kk & 15)
+
+
+@pytest.mark.parametrize("width", [256, 200, 144])
+@pytest.mark.parametrize("elt", [1, 2, 4])
+def test_staged_slice_layout(elt, width):
+    """A stage of ``width`` bytes a row (a whole stage, d = 200 int8, 100
+    bf16 or 50 f32, and the last stage of d = 100 f32) at the kernel's slice
+    stride of 256 bytes: every byte of the tile has a place of its own; a
+    value, and each 16-, 4- or 1-byte copy unit, stays whole; the eight rows
+    that a quarter warp reads hit eight distinct 16-byte bank groups; and
+    the kernel's shortcuts for the chunk and tail offsets agree with it."""
+    c = _fused_constants()
+    tn, ks = c["TN"], c["KS"]
+    ksp = (min(width, ks) + 127) & ~127  # slice_stride
+    assert ksp == 256 and width % elt == 0
+    off = np.array([[_xs_off(r, kk, ksp) for kk in range(width)] for r in range(tn)])
+    assert off.min() >= 0 and off.max() < tn * ksp
+    assert len(np.unique(off)) == off.size  # no two bytes share a place
+    if width == ksp:
+        assert len(np.unique(off)) == tn * ksp  # the slice is a bijection of its bytes
+    for unit in {elt, 16, 4, 1}:
+        if width % unit:
+            continue
+        start = off[:, ::unit]
+        for b in range(1, unit):
+            assert (off[:, b::unit] == start + b).all()
+    for base in range(0, tn, 8):
+        for kc in range(width // 16):
+            groups = {(_xs_off(base + lane, 16 * kc, ksp) >> 4) & 7 for lane in range(8)}
+            assert len(groups) == 8
+    for row in range(tn):
+        sw = row & 7
+        for kc in range(width // 16):  # stage_dots' chunk offset
+            assert row * ksp + ((((kc ^ sw) & 7) | (kc & ~7)) << 4) == off[row, 16 * kc]
+        for kk in range(width // 16 * 16, width, elt):  # its tail offset
+            assert row * ksp + (_xs_off(0, kk, ksp) ^ (sw << 4)) == off[row, kk]
