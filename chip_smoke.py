@@ -50,6 +50,10 @@ Phases, each reported on lines of its own:
             returns the same ids for every query whose keys agree. Each
             call launches topk_ed (and paa and sax_pack in the approximate
             tier), counts set to 0 just before it and read just after.
+            Every fifth pair runs under the profiler: each mode's device
+            busy share, H2D copy time and kernel time (topk_ed_kernel for
+            ``"kernel"``); the profiler must see topk_ed_kernel and no
+            two-launch kernel where topk_ed launched.
 7. long slates: the last served batch asked again at k = 200 (a slate of
             208, two kernel passes) under ``"device"`` and ``"kernel"``:
             ids equal the f64 brute force, and the tier launched its kernel.
@@ -136,7 +140,7 @@ EPS32 = 2.0 ** -23
 SOURCES = {
     "screen_select": "src/repro_torch/kernels/csrc/screen_fused.cu",
     "screen_select_quant": "src/repro_torch/kernels/csrc/screen_fused.cu",
-    "topk_ed": "src/repro_torch/kernels/csrc/screen_select.cu",
+    "topk_ed": "src/repro_torch/kernels/csrc/screen_fused.cu",
     "paa": "src/repro_torch/kernels/csrc/summarize.cu",
     "sax_pack": "src/repro_torch/kernels/csrc/summarize.cu",
     "min_ed": "src/repro_torch/kernels/csrc/screen_select.cu",
@@ -154,10 +158,13 @@ REPLACES = {
 # the device kernels each wrapper launches, as the profiler names them
 DEVICE_KERNELS = {"screen_select": ("screen_dense_kernel",),
                   "screen_select_quant": ("screen_quant_kernel",),
-                  "topk_ed": ("screen_partial_kernel", "slate_merge_kernel"),
+                  "topk_ed": ("topk_ed_kernel",),
                   "paa": ("paa_kernel",), "sax_pack": ("sax_pack_kernel",),
                   "min_ed": ("min_ed_kernel", "min_ed_unpack_kernel"),
                   "mindist": ("mindist_kernel",)}
+# topk_ed's two-launch kernels of earlier builds: no phase launches them,
+# and the device backend's serving phases launch no topk_ed kernel at all
+TWO_LAUNCH_KERNELS = ("screen_partial_kernel", "slate_merge_kernel")
 TOPK_PASS_ROWS = 4096  # one kernel-backend pass
 # slates longer than one kernel pass (128 entries): the kernel phase's
 # screens at 200, topk_ed at 200 and 500; the served batch asked again at k
@@ -541,10 +548,10 @@ def device_times(prof) -> collections.Counter:
 
 
 def kernel_device_ms(torch, fn, reps, names):
-    """Device time per launch of the kernels alone (``names``, e.g. the
-    partial screen and the merge, with its split between them) from the
-    profiler's CUPTI trace, averaged over the launches the trace kept;
-    (None, {}) where it kept none of some kernel's launches."""
+    """Device time per launch of the kernels alone (``names``, e.g. min_ed's
+    scan and unpack, with its split between them) from the profiler's CUPTI
+    trace, averaged over the launches the trace kept; (None, {}) where it
+    kept none of some kernel's launches."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -762,12 +769,13 @@ def report_phase(name, rec, lat, kernel, fallback_limit, wall):
     if launches.get(kernel, 0) == 0:
         fail(f"{name}: the serving tier never launched {kernel}")
     # the screens are one launch a pass: the traced calls ran their own
-    # device kernel (where they launched the wrapper) and no two-launch one
+    # device kernel (where they launched the wrapper) and none of topk_ed's
     ran = [k for k in rec["busy"] if any(n in k for n in DEVICE_KERNELS[kernel])]
     if rec["traced_launches"][kernel] > 0 and not ran:
         fail(f"{name}: the profiler saw no {DEVICE_KERNELS[kernel]} in the traced calls")
-    if any(n in k for k in rec["busy"] for n in DEVICE_KERNELS["topk_ed"]):
-        fail(f"{name}: the profiler saw a two-launch screen kernel in the traced calls")
+    if any(n in k for k in rec["busy"]
+           for n in DEVICE_KERNELS["topk_ed"] + TWO_LAUNCH_KERNELS):
+        fail(f"{name}: the profiler saw a topk_ed kernel in the traced calls")
     if share > fallback_limit:
         fail(f"{name}: {share:.4f} of the screened queries fell back to the host")
     if len(bare) == 0 or not all(math.isfinite(v) for v in lat):
@@ -907,16 +915,57 @@ def record_shapes(ops, shapes):
             setattr(ops, n, fn)
 
 
-def timed_call(torch, ops, shapes, fn):
+def timed_call(torch, ops, shapes, fn, trace=None):
     """One query call of the main path: launch counts set to 0 just before
-    it and read just after it; returns (ids, ms/query, launches)."""
+    it and read just after it; returns (ids, ms/query, launches). With
+    ``trace`` (a dict), the call runs under the profiler and adds its
+    device time by name ("busy"), its wall seconds, its launches and one
+    call to it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = None
+    if trace is not None:
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.__enter__()
     ops.reset_launches()
     t0 = time.perf_counter()
     with record_shapes(ops, shapes):
         _, ids, _ = fn()
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / QUERY_BATCH * 1e3
-    return ids, dt, dict(ops.LAUNCHES)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        trace.setdefault("busy", collections.Counter()).update(device_times(prof))
+        trace.setdefault("launches", collections.Counter()).update(launches)
+        trace["seconds"] = trace.get("seconds", 0.0) + wall
+        trace["calls"] = trace.get("calls", 0) + 1
+    return ids, wall / QUERY_BATCH * 1e3, launches
+
+
+def report_traced(what, trace, kernel):
+    """Log and return a traced mode's device busy share, H2D copy ms and
+    device ms of ``kernel``'s own device kernels; fail if the calls launched
+    the wrapper and the profiler saw none of them, or saw a two-launch
+    topk_ed kernel."""
+    busy = trace["busy"]
+    busy_s = sum(busy.values()) / 1e6
+    own = sum(us for k, us in busy.items() if any(n in k for n in DEVICE_KERNELS[kernel]))
+    out = {"calls": trace["calls"], "seconds": trace["seconds"],
+           "device_busy_seconds": busy_s, "busy_share": busy_s / trace["seconds"],
+           "h2d_ms": sum(us for k, us in busy.items() if "HtoD" in k) / 1e3,
+           f"{DEVICE_KERNELS[kernel][0]}_ms": own / 1e3,
+           "launches": dict(trace["launches"])}
+    top = ", ".join(f"{k[:48]} {us / 1e3:.2f} ms" for k, us in busy.most_common(4))
+    log(f"{what}: traced {out['calls']} calls: device busy {busy_s:.4f}s of "
+        f"{out['seconds']:.4f}s (share {out['busy_share']:.4f}); H2D {out['h2d_ms']:.2f} "
+        f"ms; {DEVICE_KERNELS[kernel][0]} {own / 1e3:.3f} ms over "
+        f"{trace['launches'][kernel]} launches; most device time: {top}")
+    if trace["launches"][kernel] > 0 and own == 0:
+        fail(f"{what}: the profiler saw no {DEVICE_KERNELS[kernel]} in the traced calls")
+    if any(n in k for k in busy for n in TWO_LAUNCH_KERNELS):
+        fail(f"{what}: the profiler saw a two-launch topk_ed kernel in the traced calls")
+    return out
 
 
 def near_breakpoint_rows(torch, x, p, bps):
@@ -987,7 +1036,10 @@ def phase_kernel_backend(torch, ops, kept, shapes):
     its served (query batch, window) pairs on the exact tier, whose answers
     must be the ids served (and the f64 brute force), and the approximate
     tier under "kernel" and "device", whose ids must agree wherever the
-    query's keys do. The device backend runs the same calls beside it."""
+    query's keys do. The device backend runs the same calls beside it.
+    Every TRACE_EVERY-th pair runs under the profiler (device busy share,
+    H2D copies, the backend's kernel time); the latency percentiles come
+    from the other pairs."""
     import numpy as np
 
     from repro_torch.core import SummarizationConfig
@@ -1002,17 +1054,26 @@ def phase_kernel_backend(torch, ops, kept, shapes):
     if pick.size < KERNEL_BACKEND_PAIRS:
         fail(f"kernel backend: only {pick.size} served pairs to ask again")
     lat = collections.defaultdict(list)
+    traces = collections.defaultdict(dict)
     launches = collections.Counter()
     key_differ = 0
     t0 = time.perf_counter()
-    for j in pick:
+    for t, j in enumerate(pick):
         b, t0b, t1b, qs, ids = served[j]
         lo, hi = t0b * BATCH_SIZE, (t1b + 1) * BATCH_SIZE
         what = f"kernel backend batch {b + 1}"
+        traced = t % TRACE_EVERY == TRACE_EVERY - 1
+
+        def call(mode, fn):
+            got, dt, ln = timed_call(torch, ops, shapes, fn,
+                                     traces[mode] if traced else None)
+            if not traced:
+                lat[mode].append(dt)
+            return got, ln
+
         for backend in ("kernel", "device"):
-            got, dt, ln = timed_call(torch, ops, shapes, lambda: idx.window_knn_batch(
+            got, ln = call(f"exact {backend}", lambda: idx.window_knn_batch(
                 qs, t0b, t1b, k=K, backend=backend))
-            lat[f"exact {backend}"].append(dt)
             if backend == "kernel":
                 launches.update(ln)
                 if ln["topk_ed"] == 0:
@@ -1023,10 +1084,10 @@ def phase_kernel_backend(torch, ops, kept, shapes):
                             what)
         approx = {}
         for backend in ("kernel", "device"):
-            approx[backend], dt, ln = timed_call(
-                torch, ops, shapes, lambda: idx.window_knn_approx_batch(
-                    qs, t0b, t1b, k=K, n_blocks=N_BLOCKS, backend=backend))
-            lat[f"approx {backend}"].append(dt)
+            approx[backend], ln = call(f"approx {backend}",
+                                       lambda: idx.window_knn_approx_batch(
+                                           qs, t0b, t1b, k=K, n_blocks=N_BLOCKS,
+                                           backend=backend))
             if backend == "kernel":
                 launches.update(ln)
                 missing = [n for n in ("topk_ed", "paa", "sax_pack") if ln[n] == 0]
@@ -1043,6 +1104,9 @@ def phase_kernel_backend(torch, ops, kept, shapes):
             fail(f"{what}: {int(bad.sum())} approximate answers differ between "
                  "the backends for queries with equal keys")
     summary = {f"{mode}": pct(v) for mode, v in lat.items()}
+    for mode, trace in traces.items():
+        kernel = "topk_ed" if mode.endswith("kernel") else "screen_select"
+        summary[f"traced {mode}"] = report_traced(f"kernel backend: {mode}", trace, kernel)
     summary["queries_with_differing_keys"] = key_differ
     summary["pairs"] = int(pick.size)
     summary["launches"] = dict(launches)

@@ -34,7 +34,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # the device kernels of the wrappers, in every build of the port so far
 KERNELS = ("screen_partial_kernel", "slate_merge_kernel", "screen_quant_kernel",
-           "screen_dense_kernel", "min_ed_kernel", "min_ed_unpack_kernel")
+           "screen_dense_kernel", "topk_ed_kernel", "min_ed_kernel",
+           "min_ed_unpack_kernel")
 TABLE_ROWS = 1 << 20
 D = 256
 S = 13
@@ -91,7 +92,7 @@ def main() -> int:
     print(f"[{args.label}] {smi}; ops from {ops.__file__}", flush=True)
     _build.library()
     for ln in _build.BUILD_LOG.splitlines():
-        if "screen_" in ln or "registers" in ln or "spill" in ln:
+        if "screen_" in ln or "topk_ed" in ln or "registers" in ln or "spill" in ln:
             print(f"[{args.label}] ptxas: {ln.strip()}")
 
     dev = torch.device("cuda")

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "coconut_screen_select_quant": (
         [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P], _I),
     "coconut_topk_ed": (
-        [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+        [_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P], _I),
     "coconut_min_ed": ([_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P], _I),
     "coconut_summarize_layout": ([_P], None),
     "coconut_paa": ([_P, _I, _I, _I, _P, _P], _I),
@@ -116,7 +116,7 @@ def library() -> ctypes.CDLL:
             fn.restype = restype
         out = (ctypes.c_int * 4)()
         lib.coconut_layout(out)
-        LAYOUT.update(pass_slate=out[0], query_block=out[1], tile=out[2])
+        LAYOUT.update(query_block=out[0], tile=out[1])
         lib.coconut_screen_layout(out)
         LAYOUT["screen"] = dict(pass_slate=out[0], query_block=out[1], tile=out[2])
         lib.coconut_summarize_layout(out)
@@ -127,10 +127,10 @@ def library() -> ctypes.CDLL:
 
 def layout() -> dict:
     """The kernels' launch layout as the built library defines it:
-    ``pass_slate`` (the most slate entries one pass holds; longer slates
-    take several passes), ``query_block`` (queries per block) and ``tile``
-    (candidates per tile) of the top-k and min kernels; ``screen`` the same
-    three for the f32, bf16 and int8 screens; ``max_key_words`` and
-    ``max_breakpoints`` of SAX-pack."""
+    ``query_block`` (queries per block) and ``tile`` (candidates per tile)
+    of the min kernel; ``screen`` the same two and ``pass_slate`` (the most
+    slate entries one pass holds; longer slates take several passes) for
+    the slate kernels, the three screens and ``topk_ed``; ``max_key_words``
+    and ``max_breakpoints`` of SAX-pack."""
     library()
     return LAYOUT

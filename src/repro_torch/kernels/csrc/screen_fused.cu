@@ -1,22 +1,28 @@
-// Fused screen + top-s select over an f32, bf16 or int8 table, by hand for
-// Hopper.
+// Fused screen + top-s select over an f32, bf16 or int8 table, and top-k
+// squared ED with the norms summed in the tile, by hand for Hopper.
 //
-// Replaces the Pallas kernels screen_select_pallas (f32 and bf16 tables) and
-// screen_select_quant_pallas (int8 tables with per-row f32 scales) of
-// src/repro/kernels/ed_scan_kernel.py (bodies _screen_select_body and
-// _screen_select_quant_body, running merge _merge_topk_tile). For each query
-// i and candidate j (table row r = rows[j], or r = j when no row list is
-// given):
+// Replaces the Pallas kernels screen_select_pallas (f32 and bf16 tables),
+// screen_select_quant_pallas (int8 tables with per-row f32 scales) and
+// topk_ed_pallas (f32 candidates, norms computed in the kernel) of
+// src/repro/kernels/ed_scan_kernel.py (bodies _screen_select_body,
+// _screen_select_quant_body and _topk_ed_body, running merge
+// _merge_topk_tile). For each query i and candidate j (table row r =
+// rows[j], or r = j when no row list is given, as for topk_ed):
 //
 //     d2[i, j] = (qn2[i] + xn2[r]) - 2 * g,  g = <q_i, x_r>              (f32, bf16)
 //     d2[i, j] = (qn2[i] + xn2[r]) - 2 * (scale[r] * <q_i, v_r>)         (int8)
+//     d2[i, j] = (qn2[i] + |x_r|^2) - 2 * g                              (topk_ed)
 //
 // with the product one FMA chain in f32 over k = 0..d-1 on the CUDA cores
 // (bf16 and int8 values are exact in f32; no TF32 or tensor-core product, so
-// the engine's certificate holds). The output is the top-s slate per query in
-// lexicographic (d2, j) order, empty slots (inf, INT32_MAX), plus |q_i|^2.
-// An optional per-query floor admits only candidates lexicographically after
-// it, for slates longer than one pass (ops.slate_in_passes).
+// the engine's certificate holds). The screens read cached norms xn2;
+// topk_ed's norms-in-tile mode (NORMS) sums |x_r|^2 as one more FMA chain
+// per candidate, in k order from 0, from the same values that feed the
+// products, as the Pallas body's _tile_d2 does. The output is the top-s
+// slate per query in lexicographic (d2, j) order, empty slots (inf,
+// INT32_MAX), plus |q_i|^2. An optional per-query floor admits only
+// candidates lexicographically after it, for slates longer than one pass
+// (ops.slate_in_passes).
 //
 // What bounds it on the H100: 2 m flops per table value against the 67
 // TFLOP/s of f32 FMA on the CUDA cores and the 3.35 TB/s of device memory
@@ -24,14 +30,18 @@
 // f32 or bf16 table is bound by its bytes, an int8 table by the FMAs, and at
 // 64 queries every type by the FMAs. At the serving pass (16 queries, 16,384
 // gathered rows) a block has one tile, and latency (one launch, the staging
-// of one tile, the merge) is what is left.
+// of one tile, the merge) is what is left. topk_ed's norms add 2 flops a
+// value; as every query group of a block sums them for itself, a thread
+// issues a quarter more FMAs than the products alone, and no more shared
+// loads. Its most frequent pass, 1 query x 32,768 rows, is bound by bytes.
 //
 // Design. One launch per pass, grid (ceil(m / BQ), n_splits) (the query
 // blocks of one split side by side, so that L2 serves their common rows),
 // NTHREADS threads a block of BQ queries (BM = 16; BM_WIDE = 32 for an f32
-// table at m > 16); one body for the three types, with two entry points so
-// that a profile tells them apart (screen_quant_kernel for int8,
-// screen_dense_kernel<T> for f32 and bf16):
+// table at m > 16, the screen's and topk_ed's); one body for the three
+// types and the norms-in-tile mode, with three entry points so that a
+// profile tells them apart (screen_quant_kernel for int8,
+// screen_dense_kernel<T> for f32 and bf16, topk_ed_kernel):
 //   - Staging. The block streams its split of the candidate axis in tiles of
 //     TN rows, each cut into stages of KS bytes of a row (256 int8, 128 bf16
 //     or 64 f32 values): the row bytes go to shared memory as stored, by
@@ -53,7 +63,11 @@
 //     f32 screen back; 128 per 18 for int8. Every (query, candidate) is one
 //     FMA chain in k order from 0, then (int8) the scale, then the d2 in one
 //     fixed rounding order, so the d2 values are those of the earlier
-//     two-launch kernels bit for bit.
+//     two-launch kernels bit for bit. With NORMS each thread also keeps CT
+//     norm chains, fed by the values already in registers; the threads of
+//     the query groups that share a candidate sum the same chain and get
+//     the same value, and |q|^2 is the same warp reduction as min_ed's
+//     (screen_select.cu), so min_ed's answer is topk_ed's at k = 1.
 //   - Selection. A warp keeps BQ / 8 queries' top-s slates as 64-bit keys
 //     (order-preserving d2 bits << 32 | position) in shared memory. The
 //     lanes of a group of 32 candidates that beat the slate's worst entry
@@ -412,10 +426,13 @@ __device__ __forceinline__ float value_at(const uint8_t* p) {
 // queries QT qg + i (qb: its first query at the slice's first value, rows dq
 // floats apart) and candidates c + 32 j, one FMA chain per pair in k order.
 // Per 16-byte chunk: CT loads of rows and 16 / sizeof(T) / 4 QT float4
-// broadcasts of the queries feed 16 / sizeof(T) QT CT FMAs.
-template <typename T, int CT>
+// broadcasts of the queries feed 16 / sizeof(T) QT CT FMAs. NORMS (f32
+// only): also xacc[j] += |x|^2 of candidate c + 32 j, one FMA chain per
+// candidate in k order, from the values already in registers.
+template <typename T, int CT, bool NORMS>
 __device__ __forceinline__ void stage_dots(const uint8_t* buf, const float* qb, int dq, int w,
-                                           int ksp, int c, float (&acc)[QT][CT]) {
+                                           int ksp, int c, float (&acc)[QT][CT],
+                                           float (&xacc)[CT]) {
   constexpr int VPC = 16 / sizeof(T);  // values of a 16-byte chunk
   constexpr int GROUPS = VPC / 4;      // float4s of a query that meet one chunk
   constexpr int UNROLL = 16 / GROUPS / CT;
@@ -434,7 +451,13 @@ __device__ __forceinline__ void stage_dots(const uint8_t* buf, const float* qb, 
     for (int g = 0; g < GROUPS; ++g) {
       float f[CT][4];
 #pragma unroll
-      for (int j = 0; j < CT; ++j) chunk4<T>(v[j], g, f[j]);
+      for (int j = 0; j < CT; ++j) {
+        chunk4<T>(v[j], g, f[j]);
+        if constexpr (NORMS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xacc[j] = fmaf(f[j][e], f[j][e], xacc[j]);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < QT; ++i) {
         const float4 a = *reinterpret_cast<const float4*>(qb + i * dq + VPC * kc + 4 * g);
@@ -452,7 +475,10 @@ __device__ __forceinline__ void stage_dots(const uint8_t* buf, const float* qb, 
     const int o = xs_off(0, kk * static_cast<int>(sizeof(T)), ksp) ^ (sw << 4);
     float f[CT];
 #pragma unroll
-    for (int j = 0; j < CT; ++j) f[j] = value_at<T>(row[j] + o);
+    for (int j = 0; j < CT; ++j) {
+      f[j] = value_at<T>(row[j] + o);
+      if constexpr (NORMS) xacc[j] = fmaf(f[j], f[j], xacc[j]);
+    }
 #pragma unroll
     for (int i = 0; i < QT; ++i) {
       const float a = qb[i * dq + kk];
@@ -485,15 +511,16 @@ __host__ __device__ constexpr size_t smem_bytes(int smax, int d, bool qslice) {
          2 * (size_t)TN * slice_stride<T>(d) + 4 * (size_t)BQ * TN + 4 * BQ + 8 * TN;
 }
 
-// The body of both entry points, BQ queries a block. scale is read for int8
-// tables only. vec is the rows' copy unit in bytes (16 where V16, else 4 or
-// 1); qunit, where not 0, stages the queries a slice a stage instead of
+// The body of the three entry points, BQ queries a block. scale is read for
+// int8 tables only; xn2 is not read with NORMS (f32 tables: |x|^2 summed in
+// the tile instead). vec is the rows' copy unit in bytes (16 where V16, else
+// 4 or 1); qunit, where not 0, stages the queries a slice a stage instead of
 // whole, in units of qunit bytes. floor_v/floor_i (m,) may be null; where
 // given, only candidates lexicographically after (floor_v[i], floor_i[i])
 // enter query i's slate. part (m, n_splits, s), thresh (m,) and tickets
 // (ceil(m / BQ),) are scratch; thresh and tickets start as all ones
 // (tickets at -1).
-template <typename T, int SMAX, bool V16, int BQ>
+template <typename T, int SMAX, bool V16, int BQ, bool NORMS>
 __device__ __forceinline__ void screen_body(
     const float* __restrict__ q, int m, int d, const T* __restrict__ x,
     const float* __restrict__ xn2, const float* __restrict__ scale,
@@ -556,7 +583,9 @@ __device__ __forceinline__ void screen_body(
   if (qslice) stage_queries<BQ, KSV>(qunit, qs, q, m, m0, d, 0, min(d, KSV), tid);
   cp_async_commit();
   float acc[QT][CT];
-  float xr[CT], sr[CT];  // the candidates' norms (and scales), fetched early
+  // the candidates' norms (and scales): fetched early, or (NORMS) summed
+  // over the tile's slices
+  float xr[CT], sr[CT];
   for (int g = 0; g < n_stages; ++g) {
     const int tile = g / ns, sl = g - tile * ns;
     const int c0 = c_begin + tile * TN;
@@ -568,7 +597,7 @@ __device__ __forceinline__ void screen_body(
 #pragma unroll
       for (int j = 0; j < CT; ++j) {
         const int r = rowid[(tile & 1) * TN + c + 32 * j];
-        xr[j] = r >= 0 ? xn2[r] : 0.f;
+        xr[j] = !NORMS && r >= 0 ? xn2[r] : 0.f;
         if constexpr (QUANT) sr[j] = r >= 0 ? scale[r] : 0.f;
       }
       if (tid < TN) {  // the next tile's rows; that buffer's last reader is done
@@ -591,8 +620,8 @@ __device__ __forceinline__ void screen_body(
     cp_async_commit();
     const float* qb = qslice ? qs + (g & 1) * BQ * KSV + QT * qg * KSV
                              : qs + QT * qg * dq + sl * KSV;
-    stage_dots<T, CT>(xs + (g & 1) * TN * ksp, qb, qslice ? KSV : dq, min(d - sl * KSV, KSV),
-                      ksp, c, acc);
+    stage_dots<T, CT, NORMS>(xs + (g & 1) * TN * ksp, qb, qslice ? KSV : dq,
+                             min(d - sl * KSV, KSV), ksp, c, acc, xr);
     if (sl != ns - 1) continue;
 
     const int* rid = rowid + (tile & 1) * TN;
@@ -714,9 +743,9 @@ screen_quant_kernel(const float* __restrict__ q, int m, int d, const int8_t* __r
                     const int* __restrict__ floor_i, unsigned long long* __restrict__ part,
                     unsigned long long* thresh, int* tickets, float* __restrict__ qn2_out,
                     float* __restrict__ out_v, int* __restrict__ out_i) {
-  screen_body<int8_t, SMAX, V16, BM>(q, m, d, x, xn2, scale, rows, n, s, chunk, n_splits, vec,
-                                     qunit, floor_v, floor_i, part, thresh, tickets, qn2_out,
-                                     out_v, out_i);
+  screen_body<int8_t, SMAX, V16, BM, false>(q, m, d, x, xn2, scale, rows, n, s, chunk,
+                                            n_splits, vec, qunit, floor_v, floor_i, part,
+                                            thresh, tickets, qn2_out, out_v, out_i);
 }
 
 // The f32 and bf16 screens, BQ queries a block.
@@ -729,14 +758,29 @@ screen_dense_kernel(const float* __restrict__ q, int m, int d, const T* __restri
                     unsigned long long* __restrict__ part, unsigned long long* thresh,
                     int* tickets, float* __restrict__ qn2_out, float* __restrict__ out_v,
                     int* __restrict__ out_i) {
-  screen_body<T, SMAX, V16, BQ>(q, m, d, x, xn2, nullptr, rows, n, s, chunk, n_splits, vec,
-                                qunit, floor_v, floor_i, part, thresh, tickets, qn2_out, out_v,
-                                out_i);
+  screen_body<T, SMAX, V16, BQ, false>(q, m, d, x, xn2, nullptr, rows, n, s, chunk, n_splits,
+                                       vec, qunit, floor_v, floor_i, part, thresh, tickets,
+                                       qn2_out, out_v, out_i);
 }
 
-// The launch of the T screen's kernel over query blocks of BQ, with the
-// 16-byte copy unit (V16) or the one the kernel is given.
-template <typename T, int SMAX, bool V16, int BQ>
+// topk_ed: f32 candidates x (n, d) taken in order (a position is the row),
+// |x|^2 summed in the tile, BQ queries a block.
+template <int SMAX, bool V16, int BQ>
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
+topk_ed_kernel(const float* __restrict__ q, int m, int d, const float* __restrict__ x, int n,
+               int s, int chunk, int n_splits, int vec, int qunit,
+               const float* __restrict__ floor_v, const int* __restrict__ floor_i,
+               unsigned long long* __restrict__ part, unsigned long long* thresh, int* tickets,
+               float* __restrict__ qn2_out, float* __restrict__ out_v, int* __restrict__ out_i) {
+  screen_body<float, SMAX, V16, BQ, true>(q, m, d, x, nullptr, nullptr, nullptr, n, s, chunk,
+                                          n_splits, vec, qunit, floor_v, floor_i, part, thresh,
+                                          tickets, qn2_out, out_v, out_i);
+}
+
+// The launch of the T screen's kernel (topk_ed's with NORMS) over query
+// blocks of BQ, with the 16-byte copy unit (V16) or the one the kernel is
+// given.
+template <typename T, int SMAX, bool V16, int BQ, bool NORMS>
 cudaError_t launch_kernel(int n_splits, cudaStream_t stream, const float* q, int m, int d,
                           const T* x, const float* xn2, const float* scale, const int* rows,
                           int n, int s, int chunk, int vec, const float* floor_v,
@@ -755,7 +799,14 @@ cudaError_t launch_kernel(int n_splits, cudaStream_t stream, const float* q, int
   // at about the same time and the second read comes from L2
   const dim3 grid((m + BQ - 1) / BQ, n_splits);
   cudaError_t err;
-  if constexpr (sizeof(T) == 1) {
+  if constexpr (NORMS) {
+    err = cudaFuncSetAttribute(topk_ed_kernel<SMAX, V16, BQ>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    topk_ed_kernel<SMAX, V16, BQ><<<grid, NTHREADS, smem, stream>>>(
+        q, m, d, x, n, s, chunk, n_splits, vec, qunit, floor_v, floor_i, part, thresh,
+        tickets, qn2, out_v, out_i);
+  } else if constexpr (sizeof(T) == 1) {
     err = cudaFuncSetAttribute(screen_quant_kernel<SMAX, V16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
@@ -773,7 +824,7 @@ cudaError_t launch_kernel(int n_splits, cudaStream_t stream, const float* q, int
   return cudaGetLastError();
 }
 
-template <typename T, int SMAX>
+template <typename T, int SMAX, bool NORMS>
 int launch_t(const float* q, int m, int d, const T* x, const float* xn2, const float* scale,
              const int* rows, int n, int s, int chunk, int n_splits, const float* floor_v,
              const int* floor_i, void* scratch, float* qn2, float* out_v, int* out_i,
@@ -792,7 +843,7 @@ int launch_t(const float* q, int m, int d, const T* x, const float* xn2, const f
   const int vec = (base % 16 == 0 && row_bytes % 16 == 0) ? 16
                   : (base % 4 == 0 && row_bytes % 4 == 0) ? 4 : 1;
 #define COCONUT_LAUNCH(V16, BQ)                                                             \
-  return static_cast<int>(launch_kernel<T, SMAX, V16, BQ>(                                 \
+  return static_cast<int>(launch_kernel<T, SMAX, V16, BQ, NORMS>(                          \
       n_splits, stream, q, m, d, x, xn2, scale, rows, n, s, chunk, vec, floor_v, floor_i,  \
       part, thresh, tickets, qn2, out_v, out_i))
   // an f32 table's products are bound by shared-memory loads at BM queries
@@ -806,13 +857,13 @@ int launch_t(const float* q, int m, int d, const T* x, const float* xn2, const f
 #undef COCONUT_LAUNCH
 }
 
-template <typename T>
+template <typename T, bool NORMS = false>
 int launch(const void* q, int m, int d, const void* x, const void* scale, const void* xn2,
            const void* rows, int n, int s, int chunk, int n_splits, const void* floor_v,
            const void* floor_i, void* scratch, void* qn2, void* out_v, void* out_i,
            void* stream) {
 #define COCONUT_LAUNCH(SMAX)                                                               \
-  return launch_t<T, SMAX>(                                                                \
+  return launch_t<T, SMAX, NORMS>(                                                         \
       static_cast<const float*>(q), m, d, static_cast<const T*>(x),                        \
       static_cast<const float*>(xn2), static_cast<const float*>(scale),                    \
       static_cast<const int*>(rows), n, s, chunk, n_splits,                                \
@@ -831,7 +882,8 @@ int launch(const void* q, int m, int d, const void* x, const void* scale, const 
 
 extern "C" {
 
-// The layout the host wrapper plans launches of the three screens by:
+// The layout the host wrapper plans launches of the three screens and of
+// topk_ed by:
 // out[0] the most slate entries one pass holds, out[1] queries per block
 // (the narrower block; the scratch's tickets count by it), out[2]
 // candidates per tile.
@@ -841,10 +893,11 @@ void coconut_screen_layout(int* out) {
   out[2] = TN;
 }
 
-// Both screens take: rows may be null (candidates are the table rows
-// 0..n-1), floor_v/floor_i too (no floor). scratch holds 8 (m n_splits s +
-// m) + 4 ceil(m / 16) bytes. out_v/out_i (m, s); qn2 (m,). They return the
-// CUDA error code of the memset and the launch.
+// All three take: floor_v/floor_i may be null (no floor), scratch holds 8
+// (m n_splits s + m) + 4 ceil(m / 16) bytes, out_v/out_i (m, s), qn2 (m,)
+// (|q|^2 as a by-product). The screens' rows may be null (candidates are
+// the table rows 0..n-1). They return the CUDA error code of the memset
+// and the launch.
 
 // f32 (dtype 0) or bf16 (dtype 1) table x (N, d).
 int coconut_screen_select(int dtype, const void* q, int m, int d, const void* x,
@@ -868,6 +921,14 @@ int coconut_screen_select_quant(const void* q, int m, int d, const void* x, cons
                                 void* stream) {
   return launch<int8_t>(q, m, d, x, scale, xn2, rows, n, s, chunk, n_splits, floor_v, floor_i,
                         scratch, qn2, out_v, out_i, stream);
+}
+
+// topk_ed: f32 candidates x (n, d) taken in order, |x|^2 summed in the tile.
+int coconut_topk_ed(const void* q, int m, int d, const void* x, int n, int s, int chunk,
+                    int n_splits, const void* floor_v, const void* floor_i, void* scratch,
+                    void* qn2, void* out_v, void* out_i, void* stream) {
+  return launch<float, true>(q, m, d, x, nullptr, nullptr, nullptr, n, s, chunk, n_splits,
+                             floor_v, floor_i, scratch, qn2, out_v, out_i, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 """Public wrappers around the hand-written kernels.
 
 Dispatch follows the device of the tensors: a CUDA tensor goes to the CUDA
-kernel (``csrc/screen_fused.cu`` for the f32, bf16 and int8 screens,
-``csrc/screen_select.cu`` for ``topk_ed`` and ``min_ed``,
+kernel (``csrc/screen_fused.cu`` for the f32, bf16 and int8 screens and
+``topk_ed``, ``csrc/screen_select.cu`` for ``min_ed``,
 ``csrc/summarize.cu`` for ``paa`` and ``sax_pack``,
 ``csrc/lower_bound.cu`` for ``mindist``; built on first use by
 :mod:`._build`) or the call raises; a CPU tensor goes to the plain PyTorch
@@ -13,11 +13,11 @@ wrapper launches it and nowhere else, so a run can show that its main path
 went through the kernel.
 
 Contract (the reference's ``kernels.ops`` wrappers): the screen is
-``|q|^2 + xn2 - 2 q.x`` over precomputed candidate norms (``topk_ed`` sums
-``|x|^2`` from the rows), the slate is the top-k in lexicographic (d2,
-candidate) order, slots that no candidate can fill come back as
-``(inf, -1)``, ``k > n`` pads the tail that way, and an empty batch returns
-without a launch. A slate has no cap: one kernel pass holds
+``|q|^2 + xn2 - 2 q.x`` over precomputed candidate norms (``topk_ed`` and
+``min_ed`` sum ``|x|^2`` from the rows in the tile), the slate is the top-k
+in lexicographic (d2, candidate) order, slots that no candidate can fill
+come back as ``(inf, -1)``, ``k > n`` pads the tail that way, and an empty
+batch returns without a launch. A slate has no cap: one kernel pass holds
 ``pass_slate()`` entries, and a longer slate is taken in passes
 (:func:`slate_in_passes`), each pass a launch. The reference zero-pads
 ``d`` to a multiple of 128 for the TPU's lanes and pads candidate counts to
@@ -60,11 +60,12 @@ def reset_launches() -> None:
 
 
 def pass_slate() -> int:
-    """The most slate entries one pass of the CUDA slate kernels holds, as
-    the built library defines it; a longer slate takes several passes."""
+    """The most slate entries one pass of the CUDA slate kernels (the three
+    screens and topk_ed) holds, as the built library defines it; a longer
+    slate takes several passes."""
     from . import _build
 
-    return _build.layout()["pass_slate"]
+    return _build.layout()["screen"]["pass_slate"]
 
 
 def candidate_bucket(e: int, min_bucket: int = 64) -> int:
@@ -191,51 +192,17 @@ def _prepare(q, rows, tensors):
     return q.contiguous(), rows
 
 
-def _launch_topk(q, x, k, kk, n):
-    """The CUDA kernels of topk_ed: partial slates over candidate splits,
-    then a merge; in passes of ``pass_slate`` entries where the slate is
-    longer."""
-    from . import _build  # builds the library on first use
-
-    layout = _build.layout()
-    q = q.contiguous()
-    dev = q.device
-    m, d = q.shape
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    qn2 = torch.empty((m,), **f32)
-    stream = _stream(dev)
-    lib = _build.library()
-
-    def one_pass(s, floor):
-        chunk, n_splits = _splits(dev, n, m, s, layout)
-        part_v = torch.empty((m, n_splits, s), **f32)
-        part_i = torch.empty((m, n_splits, s), **i32)
-        out_v = torch.empty((m, s), **f32)
-        out_i = torch.empty((m, s), **i32)
-        fv, fi = (None, None) if floor is None else (floor[0].data_ptr(),
-                                                     floor[1].data_ptr())
-        rc = lib.coconut_topk_ed(q.data_ptr(), m, d, x.data_ptr(), n, s, chunk, n_splits, fv,
-                                 fi, part_v.data_ptr(), part_i.data_ptr(), qn2.data_ptr(),
-                                 out_v.data_ptr(), out_i.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"topk_ed kernel launch failed with CUDA error {rc}")
-        LAUNCHES["topk_ed"] += 1
-        return out_v, out_i, qn2
-
-    out_v, out_i, qn2 = slate_in_passes(one_pass, kk, layout["pass_slate"])
-    return _finish(out_v, out_i, n, k)
-
-
 _SCREEN_DTYPES = {"screen_select": {torch.float32: 0, torch.bfloat16: 1},
-                  "screen_select_quant": {torch.int8: None}}
+                  "screen_select_quant": {torch.int8: None},
+                  "topk_ed": {torch.float32: None}}
 
 
 def _launch_screen(name, q, x, scale, xn2, k, kk, rows, n):
     """The CUDA kernel of the three screens (f32 and bf16 tables for
-    screen_select, int8 for screen_select_quant): one launch per pass, whose
-    last block of each query block merges the partial slates itself; in
-    passes of ``pass_slate`` entries where the slate is longer."""
+    screen_select, int8 for screen_select_quant) and of topk_ed (f32 rows
+    taken in order, ``|x|^2`` summed in the tile): one launch per pass,
+    whose last block of each query block merges the partial slates itself;
+    in passes of ``pass_slate`` entries where the slate is longer."""
     from . import _build  # builds the library on first use
 
     if x.dtype not in _SCREEN_DTYPES[name]:
@@ -261,14 +228,17 @@ def _launch_screen(name, q, x, scale, xn2, k, kk, rows, n):
         out_i = torch.empty((m, s), dtype=torch.int32, device=dev)
         fv, fi = (None, None) if floor is None else (floor[0].data_ptr(),
                                                      floor[1].data_ptr())
-        tail = (rows_ptr, n, s, chunk, n_splits, fv, fi, scratch.data_ptr(), qn2.data_ptr(),
+        tail = (n, s, chunk, n_splits, fv, fi, scratch.data_ptr(), qn2.data_ptr(),
                 out_v.data_ptr(), out_i.data_ptr(), stream)
         if name == "screen_select":
             rc = lib.coconut_screen_select(_SCREEN_DTYPES[name][x.dtype], q.data_ptr(), m, d,
-                                           x.data_ptr(), xn2.data_ptr(), *tail)
-        else:
+                                           x.data_ptr(), xn2.data_ptr(), rows_ptr, *tail)
+        elif name == "screen_select_quant":
             rc = lib.coconut_screen_select_quant(q.data_ptr(), m, d, x.data_ptr(),
-                                                 scale.data_ptr(), xn2.data_ptr(), *tail)
+                                                 scale.data_ptr(), xn2.data_ptr(), rows_ptr,
+                                                 *tail)
+        else:
+            rc = lib.coconut_topk_ed(q.data_ptr(), m, d, x.data_ptr(), *tail)
         if rc != 0:
             raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
         LAUNCHES[name] += 1
@@ -350,7 +320,8 @@ def topk_ed(q: torch.Tensor, x: torch.Tensor,
         return _finish(vals, idxs, n, k)
     if dev.type != "cuda":
         raise ValueError(f"no topk_ed for device {dev}")
-    return _launch_topk(q, x.contiguous(), k, kk, n)
+    vals, idxs, _ = _launch_screen("topk_ed", q, x.contiguous(), None, None, k, kk, None, n)
+    return vals, idxs
 
 
 def topk_ed_bucketed(q: torch.Tensor, x: torch.Tensor,

@@ -317,6 +317,87 @@ def test_cuda_topk_ed_ties_empty_and_cap(cuda):
     assert i.tolist() == [list(range(ops.pass_slate() + 1))] * 2
 
 
+def _topk_tol(q, x):
+    """f32 sums in another order: the tolerance scales with the magnitudes
+    the d2 adds up (the norms of both sides)."""
+    return 1e-5 * float((q * q).sum(-1).max() + torch.nan_to_num(x * x).sum(-1).max())
+
+
+def _hold_topk_and_min_ed(q, x, k):
+    """topk_ed in one launch, held to the plain slate; min_ed equal to its
+    k = 1 answer bit for bit. Returns the slate."""
+    ops.reset_launches()
+    v, i = ops.topk_ed(q, x, k)
+    tv, ti = ops.topk_ed(q, x, 1)
+    mv, mi = ops.min_ed(q, x)
+    pfull, pord = ref.topk_ed_ref(q, x, x.shape[0])
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["topk_ed"] == 2 and ops.LAUNCHES["min_ed"] == 1
+    _hold_slate(v, i, pfull, pord, k, _topk_tol(q, x))
+    assert torch.equal(mi, ti[:, 0]) and torch.equal(mv.view(torch.int32),
+                                                    tv[:, 0].view(torch.int32))
+    return v, i
+
+
+@pytest.mark.parametrize("d", [29, 160, 2049, 4096])
+def test_cuda_topk_ed_any_width_matches_plain_and_min_ed(cuda, d):
+    """Rows of 4-byte units (29, 2,049) and of 16-byte units (160, 4,096:
+    32-query blocks at 21 queries), and rows too wide for a block to stage
+    its queries whole (2,049, 4,096): the plain slate, and min_ed equal to
+    topk_ed's k = 1 answer bit for bit."""
+    rng = np.random.default_rng(d)
+    q = torch.from_numpy(rng.standard_normal((21, d)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((3001, d)).astype(np.float32)).to(cuda)
+    _hold_topk_and_min_ed(q, x, 13)
+
+
+def test_cuda_topk_ed_on_a_4_byte_aligned_base_with_a_nan_row(cuda):
+    """Rows of 29 values starting 116 bytes past an aligned base (``x[1:]``
+    of a contiguous table, so 4-byte copies), one of them NaN: the NaN row
+    never enters the slate, and the rest is the plain slate."""
+    rng = np.random.default_rng(29)
+    n = 3000
+    base = torch.from_numpy(rng.standard_normal((n + 1, 29)).astype(np.float32)).to(cuda)
+    x = base[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    x[77] = float("nan")
+    q = torch.from_numpy(rng.standard_normal((19, 29)).astype(np.float32)).to(cuda)
+    q[0] = x[76] + 0.001  # row 77's neighbour is this query's nearest
+    _, i = _hold_topk_and_min_ed(q, x, 13)
+    assert not (i == 77).any() and (i >= 0).all()
+    assert int(i[0, 0]) == 76
+
+
+@pytest.mark.parametrize("k", [13, 200])
+def test_cuda_topk_ed_one_launch_per_pass(cuda, k):
+    """One topk_ed_kernel launch per pass at its most frequent pass (1 query
+    over 32,768 rows) and no separate merge kernel: the launch count says
+    so, and the profiler's trace holds no other slate kernel (it may drop
+    launches of a short run, never add them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(14)
+    q = torch.from_numpy(rng.standard_normal((1, 256)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((32768, 256)).astype(np.float32)).to(cuda)
+    ops.topk_ed(q, x, k)
+    torch.cuda.synchronize()
+    calls, passes = 4, -(-k // ops.pass_slate())
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ops.topk_ed(q, x, k)
+            torch.cuda.synchronize()
+    assert ops.LAUNCHES["topk_ed"] == calls * passes
+    names = collections.Counter()
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CPU"):
+            names[e.key] += e.count
+    fused = sum(c for name, c in names.items() if "topk_ed_kernel" in name)
+    assert 0 < fused <= calls * passes, names
+    other = ("slate_merge", "screen_partial", "screen_dense_kernel", "screen_quant_kernel")
+    assert not any(o in name for name in names for o in other), names
+
+
 @pytest.mark.parametrize("b,n,w,c", [(1000, 256, 16, 8), (257, 96, 12, 6),
                                      (33, 64, 8, 4), (5, 128, 16, 2),
                                      (40, 16384, 16, 8), (7, 65536, 16, 8)])

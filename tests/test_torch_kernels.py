@@ -687,30 +687,44 @@ def _fused_constants():
             re.findall(r"constexpr int (\w+) = (\d+);", FUSED_CU.read_text())}
 
 
+# (queries, candidates, SMs) of each split plan: the serving pass (16 queries
+# over 2,048 gathered rows on 8 SMs: one tile a split, as 16,384 rows on
+# 132); 64 queries over 8,292 rows (several tiles a split and a short last
+# one, as over the full table); topk_ed's most frequent pass on the card's
+# own 132 SMs (1 query over 32,768 rows: 256 one-tile splits, 15 of the
+# block's 16 query slots empty); topk_ed over a table of 5,000 rows, not a
+# whole number of tiles, at 64 queries (32-query blocks, BM_WIDE)
+_SPLIT_SHAPES = {"serving": (16, 2048, 8), "full": (64, 8292, 8),
+                 "topk-pass": (1, 32768, 132), "topk-wide": (64, 5000, 8)}
+
+
 @pytest.mark.parametrize("s", [13, 128])
 @pytest.mark.parametrize("case", ["random", "ties", "floor"])
-@pytest.mark.parametrize("shape", ["serving", "full"])
+@pytest.mark.parametrize("shape", ["serving", "full", "topk-pass", "topk-wide"])
 def test_minima_walk_over_the_splits_ops_makes(shape, case, s, monkeypatch):
-    """The fused screen's merge rule over the candidate splits that
-    ``ops._splits`` makes for the kernel's layout, with 8 SMs standing in
-    for the card's 132: 16 queries over 2,048 gathered rows (one tile a
-    split, as at the serving pass's 16,384 rows on 132 SMs) and 64 queries
-    over 8,292 rows (several tiles a split and a short last one, as over
-    the full table). The merged slate equals the one-shot slate."""
+    """The fused kernel's merge rule over the candidate splits that
+    ``ops._splits`` makes for the kernel's layout (8 SMs standing in for the
+    card's 132, except at topk_ed's pass, planned for 132), for the screens
+    and topk_ed (``_SPLIT_SHAPES``). The merged slate equals the one-shot
+    slate."""
     c = _fused_constants()
     layout = {"tile": c["TN"], "query_block": c["BM"], "pass_slate": c["PASS_SLATE"]}
     cpu = torch.device("cpu")
-    monkeypatch.setitem(ops._SM_COUNT, cpu, 8)
-    m, n = (16, 2048) if shape == "serving" else (64, 8292)
+    m, n, sms = _SPLIT_SHAPES[shape]
+    monkeypatch.setitem(ops._SM_COUNT, cpu, sms)
     chunk, n_splits = ops._splits(cpu, n, m, s, layout)
     assert chunk % layout["tile"] == 0 and (n_splits - 1) * chunk < n <= n_splits * chunk
-    if shape == "serving":
+    if shape in ("serving", "topk-pass"):
         assert chunk == layout["tile"]
     else:
         assert chunk > layout["tile"] and n % chunk
+    if shape == "topk-pass":
+        assert n_splits == 256 and c["BM"] - m == 15
+    if shape == "topk-wide":  # f32 at m > BM: blocks of BM_WIDE, fewer than the tickets
+        assert m > c["BM"] and -(-m // c["BM_WIDE"]) == 2 <= -(-m // c["BM"])
     bounds = [min(n, j * chunk) for j in range(n_splits + 1)]
     rng = np.random.default_rng(len(case) + s)
-    rows = 4  # the merge is per query: a few rows of the batch
+    rows = min(m, 4)  # the merge is per query: a few rows of the batch
     d2 = rng.standard_normal((rows, n)).astype(np.float32)
     if case == "ties":
         d2 = rng.integers(0, 4, (rows, n)).astype(np.float32)
@@ -724,6 +738,68 @@ def test_minima_walk_over_the_splits_ops_makes(shape, case, s, monkeypatch):
     assert torch.equal(torch.tensor([[e[1] for e in r] for r in got], dtype=torch.int32),
                        want_i)
     assert torch.equal(torch.tensor([[e[0] for e in r] for r in got]), want_v)
+
+
+class _RecordingLibrary:
+    """A stand-in for the built kernel library: records each
+    ``coconut_topk_ed`` call and launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def coconut_topk_ed(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def test_topk_ed_wrapper_plans_from_the_screen_layout(monkeypatch):
+    """``ops.topk_ed``'s CUDA wrapper (run here over CPU tensors against a
+    recording library) plans each pass from the fused kernel's layout, not
+    min_ed's: its splits are ``ops._splits`` of the screen layout, its one
+    int64 scratch holds the partial slates, the thresholds and a ticket per
+    query block of that layout, and it calls ``coconut_topk_ed`` once per
+    pass, counting each call once. A slate of 200 takes two passes, the
+    second after the first's last entry."""
+    from repro_torch.kernels import _build
+
+    c = _fused_constants()
+    screen = {"tile": c["TN"], "query_block": c["BM"], "pass_slate": c["PASS_SLATE"]}
+    # min_ed's layout made unlike the screen's, so that a plan from it shows
+    monkeypatch.setattr(_build, "layout",
+                        lambda: {"query_block": 1, "tile": 32, "screen": screen})
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(ops, "_stream", lambda dev: 0)
+    cpu = torch.device("cpu")
+    monkeypatch.setitem(ops._SM_COUNT, cpu, 132)
+    int64 = {}
+    real_empty = torch.empty
+
+    def empty(*args, **kwargs):
+        t = real_empty(*args, **kwargs)
+        if t.dtype == torch.int64:
+            int64[t.data_ptr()] = t
+        return t
+
+    monkeypatch.setattr(torch, "empty", empty)
+    m, n, d, k = 3, 5000, 24, 200
+    rng = np.random.default_rng(0)
+    q = _t(rng.standard_normal((m, d)).astype(np.float32))
+    x = _t(rng.standard_normal((n, d)).astype(np.float32))
+    ops.reset_launches()
+    v, i, _ = ops._launch_screen("topk_ed", q, x, None, None, k, k, None, n)
+    assert v.shape == i.shape == (m, k)
+    assert ops.LAUNCHES["topk_ed"] == len(lib.calls) == 2
+    assert sum(ops.LAUNCHES.values()) == 2
+    m_blocks = -(-m // c["BM"])
+    for call, s in zip(lib.calls, (c["PASS_SLATE"], k - c["PASS_SLATE"])):
+        (q_ptr, cm, cd, x_ptr, cn, cs, chunk, n_splits, fv, fi, scratch,
+         *_outs, stream) = call
+        assert (q_ptr, cm, cd, x_ptr, cn, cs, stream) == (q.data_ptr(), m, d, x.data_ptr(),
+                                                          n, s, 0)
+        assert (chunk, n_splits) == ops._splits(cpu, n, m, s, screen)
+        assert int64[scratch].numel() == m * n_splits * s + m + -(-m_blocks // 2)
+        assert (fv is None) == (fi is None) == (s == c["PASS_SLATE"])
 
 
 def _xs_off(row, kk, ksp):
