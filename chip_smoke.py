@@ -143,7 +143,7 @@ SOURCES = {
     "topk_ed": "src/repro_torch/kernels/csrc/screen_fused.cu",
     "paa": "src/repro_torch/kernels/csrc/summarize.cu",
     "sax_pack": "src/repro_torch/kernels/csrc/summarize.cu",
-    "min_ed": "src/repro_torch/kernels/csrc/screen_select.cu",
+    "min_ed": "src/repro_torch/kernels/csrc/screen_fused.cu",
     "mindist": "src/repro_torch/kernels/csrc/lower_bound.cu",
 }
 REPLACES = {

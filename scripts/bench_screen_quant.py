@@ -2,8 +2,9 @@
 """Time the three screens (``ops.screen_select`` over f32 and bf16 tables,
 ``ops.screen_select_quant`` over int8) on one NVIDIA card, each at five
 shapes of the kernel phase and the serving pass, and the ``topk_ed`` and
-``min_ed`` kernels beside them; optionally of another source tree of the
-port, so that two builds compare on one card.
+``min_ed`` kernels beside them (``topk_ed`` also at k = 1 at ``min_ed``'s
+shapes: the slate route to the same answer); optionally of another source
+tree of the port, so that two builds compare on one card.
 
     python3 scripts/bench_screen_quant.py [--tree DIR] [--label NAME]
         [--others] [--save FILE] [--compare FILE]
@@ -92,7 +93,7 @@ def main() -> int:
     print(f"[{args.label}] {smi}; ops from {ops.__file__}", flush=True)
     _build.library()
     for ln in _build.BUILD_LOG.splitlines():
-        if "screen_" in ln or "topk_ed" in ln or "registers" in ln or "spill" in ln:
+        if any(w in ln for w in ("screen_", "topk_ed", "min_ed", "registers", "spill")):
             print(f"[{args.label}] ptxas: {ln.strip()}")
 
     dev = torch.device("cuda")
@@ -114,7 +115,9 @@ def main() -> int:
         cases += [("topk_ed m=1 n=32768", "topk", 1, 32768),
                   ("topk_ed m=64 full 2^20", "topk", 64, None),
                   ("min_ed m=16 full 2^20", "min_ed", 16, None),
-                  ("min_ed m=64 full 2^20", "min_ed", 64, None)]
+                  ("min_ed m=64 full 2^20", "min_ed", 64, None),
+                  ("topk_ed k=1 m=16 full 2^20", "topk1", 16, None),
+                  ("topk_ed k=1 m=64 full 2^20", "topk1", 64, None)]
     stored = {}
     saved, results = {}, []
     earlier = torch.load(args.compare) if args.compare else {}
@@ -127,10 +130,10 @@ def main() -> int:
             case = cs.Case(torch, ops, ref, q[m], table, scale, xn2, rows[n], S)
             err, share, ndiff = case.check()
             check = f"max|delta d2| {err:.3e} ({share:.2e} of the bound), {ndiff} swapped"
-        elif kind == "topk":
+        elif kind in ("topk", "topk1"):
             x = xc if n is None else xc[perm[:n]].contiguous()
             qq = q[16][:1].contiguous() if m == 1 else q[m]
-            case = cs.TopkCase(torch, ops, ref, qq, x, S)
+            case = cs.TopkCase(torch, ops, ref, qq, x, S if kind == "topk" else 1)
             err, share, ndiff = case.check()
             check = f"max|delta d2| {err:.3e} ({share:.2e} of the bound), {ndiff} swapped"
         else:

@@ -19,8 +19,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "screen_select.cu", CSRC / "screen_fused.cu", CSRC / "summarize.cu",
-           CSRC / "lower_bound.cu")
+SOURCES = (CSRC / "screen_fused.cu", CSRC / "summarize.cu", CSRC / "lower_bound.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -29,14 +28,13 @@ _LOCK = threading.Lock()
 _LIB = None
 # what ptxas said about the last build (registers, shared memory, spills)
 BUILD_LOG = ""
-# filled from the library's coconut_layout when it is loaded
+# filled from the library's layout functions when it is loaded
 LAYOUT: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "coconut_layout": ([_P], None),
     "coconut_screen_layout": ([_P], None),
     "coconut_screen_select": (
         [_I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P], _I),
@@ -115,8 +113,6 @@ def library() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = restype
         out = (ctypes.c_int * 4)()
-        lib.coconut_layout(out)
-        LAYOUT.update(query_block=out[0], tile=out[1])
         lib.coconut_screen_layout(out)
         LAYOUT["screen"] = dict(pass_slate=out[0], query_block=out[1], tile=out[2])
         lib.coconut_summarize_layout(out)
@@ -127,10 +123,10 @@ def library() -> ctypes.CDLL:
 
 def layout() -> dict:
     """The kernels' launch layout as the built library defines it:
-    ``query_block`` (queries per block) and ``tile`` (candidates per tile)
-    of the min kernel; ``screen`` the same two and ``pass_slate`` (the most
-    slate entries one pass holds; longer slates take several passes) for
-    the slate kernels, the three screens and ``topk_ed``; ``max_key_words``
-    and ``max_breakpoints`` of SAX-pack."""
+    ``screen``, the layout of the three screens, ``topk_ed`` and
+    ``min_ed`` (``query_block``, queries per block; ``tile``, candidates
+    per tile; ``pass_slate``, the most slate entries one pass holds, longer
+    slates taking several passes); ``max_key_words`` and
+    ``max_breakpoints`` of SAX-pack."""
     library()
     return LAYOUT

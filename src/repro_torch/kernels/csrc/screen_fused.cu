@@ -1,28 +1,30 @@
 // Fused screen + top-s select over an f32, bf16 or int8 table, and top-k
-// squared ED with the norms summed in the tile, by hand for Hopper.
+// and minimum squared ED with the norms summed in the tile, by hand for
+// Hopper.
 //
 // Replaces the Pallas kernels screen_select_pallas (f32 and bf16 tables),
-// screen_select_quant_pallas (int8 tables with per-row f32 scales) and
-// topk_ed_pallas (f32 candidates, norms computed in the kernel) of
-// src/repro/kernels/ed_scan_kernel.py (bodies _screen_select_body,
-// _screen_select_quant_body and _topk_ed_body, running merge
-// _merge_topk_tile). For each query i and candidate j (table row r =
-// rows[j], or r = j when no row list is given, as for topk_ed):
+// screen_select_quant_pallas (int8 tables with per-row f32 scales),
+// topk_ed_pallas and min_ed_pallas (f32 candidates, norms computed in the
+// kernel) of src/repro/kernels/ed_scan_kernel.py (bodies
+// _screen_select_body, _screen_select_quant_body, _topk_ed_body and
+// _ed_scan_body, running merge _merge_topk_tile). For each query i and
+// candidate j (table row r = rows[j], or r = j when no row list is given, as
+// for topk_ed and min_ed):
 //
 //     d2[i, j] = (qn2[i] + xn2[r]) - 2 * g,  g = <q_i, x_r>              (f32, bf16)
 //     d2[i, j] = (qn2[i] + xn2[r]) - 2 * (scale[r] * <q_i, v_r>)         (int8)
-//     d2[i, j] = (qn2[i] + |x_r|^2) - 2 * g                              (topk_ed)
+//     d2[i, j] = (qn2[i] + |x_r|^2) - 2 * g                              (topk_ed, min_ed)
 //
 // with the product one FMA chain in f32 over k = 0..d-1 on the CUDA cores
 // (bf16 and int8 values are exact in f32; no TF32 or tensor-core product, so
 // the engine's certificate holds). The screens read cached norms xn2;
-// topk_ed's norms-in-tile mode (NORMS) sums |x_r|^2 as one more FMA chain
-// per candidate, in k order from 0, from the same values that feed the
-// products, as the Pallas body's _tile_d2 does. The output is the top-s
-// slate per query in lexicographic (d2, j) order, empty slots (inf,
-// INT32_MAX), plus |q_i|^2. An optional per-query floor admits only
-// candidates lexicographically after it, for slates longer than one pass
-// (ops.slate_in_passes).
+// the norms-in-tile mode (NORMS) of topk_ed and min_ed sums |x_r|^2 as one
+// more FMA chain per candidate, in k order from 0, from the same values that
+// feed the products, as the Pallas body's _tile_d2 does. The output is the
+// top-s slate per query in lexicographic (d2, j) order, empty slots (inf,
+// INT32_MAX), plus |q_i|^2; min_ed's is the first entry of that order alone.
+// An optional per-query floor admits only candidates lexicographically
+// after it, for slates longer than one pass (ops.slate_in_passes).
 //
 // What bounds it on the H100: 2 m flops per table value against the 67
 // TFLOP/s of f32 FMA on the CUDA cores and the 3.35 TB/s of device memory
@@ -30,18 +32,20 @@
 // f32 or bf16 table is bound by its bytes, an int8 table by the FMAs, and at
 // 64 queries every type by the FMAs. At the serving pass (16 queries, 16,384
 // gathered rows) a block has one tile, and latency (one launch, the staging
-// of one tile, the merge) is what is left. topk_ed's norms add 2 flops a
-// value; as every query group of a block sums them for itself, a thread
-// issues a quarter more FMAs than the products alone, and no more shared
-// loads. Its most frequent pass, 1 query x 32,768 rows, is bound by bytes.
+// of one tile, the merge) is what is left. The norms add 2 flops a value; as
+// every query group of a block sums them for itself, a thread issues a
+// quarter more FMAs than the products alone, and no more shared loads.
+// topk_ed's most frequent pass, 1 query x 32,768 rows, is bound by bytes, as
+// is min_ed's, 16 queries x 2^20 rows.
 //
 // Design. One launch per pass, grid (ceil(m / BQ), n_splits) (the query
 // blocks of one split side by side, so that L2 serves their common rows),
 // NTHREADS threads a block of BQ queries (BM = 16; BM_WIDE = 32 for an f32
-// table at m > 16, the screen's and topk_ed's); one body for the three
-// types and the norms-in-tile mode, with three entry points so that a
-// profile tells them apart (screen_quant_kernel for int8,
-// screen_dense_kernel<T> for f32 and bf16, topk_ed_kernel):
+// table at m > 16, the screen's, topk_ed's and min_ed's); one body for the
+// three types, the norms-in-tile mode and the min epilogue (ARGMIN), with
+// four entry points so that a profile tells them apart (screen_quant_kernel
+// for int8, screen_dense_kernel<T> for f32 and bf16, topk_ed_kernel,
+// min_ed_kernel):
 //   - Staging. The block streams its split of the candidate axis in tiles of
 //     TN rows, each cut into stages of KS bytes of a row (256 int8, 128 bf16
 //     or 64 f32 values): the row bytes go to shared memory as stored, by
@@ -66,8 +70,8 @@
 //     two-launch kernels bit for bit. With NORMS each thread also keeps CT
 //     norm chains, fed by the values already in registers; the threads of
 //     the query groups that share a candidate sum the same chain and get
-//     the same value, and |q|^2 is the same warp reduction as min_ed's
-//     (screen_select.cu), so min_ed's answer is topk_ed's at k = 1.
+//     the same value, and |q|^2 is one warp reduction, so min_ed's answer is
+//     topk_ed's at k = 1.
 //   - Selection. A warp keeps BQ / 8 queries' top-s slates as 64-bit keys
 //     (order-preserving d2 bits << 32 | position) in shared memory. The
 //     lanes of a group of 32 candidates that beat the slate's worst entry
@@ -88,6 +92,20 @@
 //     instead left ~700 of 1,664 entries a query at the serving pass.
 //     The thresholds and counters are reset by the C entry on the call's
 //     stream: no state outlives a call.
+//   - Min epilogue (ARGMIN, min_ed). No slate, d2 tile, merge or ticket: at
+//     the end of each tile a thread folds its QT x CT d2 values into QT
+//     running keys (the same 64-bit keys, so a tie keeps the lower row;
+//     registers only, so no barrier), the warp reduces them by shuffles at
+//     the end of its split, and one atomicMin per warp and query folds them
+//     into the answer: the threshold of a slate of one. The answer does not
+//     depend on block order. A NaN d2 is folded too, its key after +inf's,
+//     so a query's answer is NaN only where every d2 is. Without the d2
+//     tile a 32-query block stages its queries whole at d = 256 (sliced
+//     with it: 5% slower at 64 queries over 2^20 rows, PERF.md). A query
+//     equal to a row can give a slightly negative d2 (|q|^2 and |x|^2 are
+//     summed in other orders than the cross term); the key map orders
+//     negative floats, and -0.0 is made +0.0 first so that equal distances
+//     keep the lower row.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -496,7 +514,8 @@ __device__ __forceinline__ float screen_d2(float qn2, float xn2, float g) {
 // Dynamic shared memory of a block: the slates (BQ x SMAX keys), the
 // queries (whole: BQ x dq f32, dq = d rounded up to 16; or sliced: two
 // buffers of BQ x stage_values f32), two slice buffers of TN rows x ksp
-// bytes, the d2 tile (BQ x TN), |q|^2 and two row lists.
+// bytes, the d2 tile (BQ x TN; none without slates, as for min_ed), |q|^2
+// and two row lists.
 template <typename T>
 __host__ __device__ constexpr int stage_values() { return KS / static_cast<int>(sizeof(T)); }
 __host__ __device__ constexpr int query_stride(int d) { return (d + 15) & ~15; }
@@ -508,10 +527,11 @@ template <typename T, int BQ>
 __host__ __device__ constexpr size_t smem_bytes(int smax, int d, bool qslice) {
   return 8 * (size_t)BQ * smax +
          4 * (size_t)BQ * (qslice ? 2 * stage_values<T>() : query_stride(d)) +
-         2 * (size_t)TN * slice_stride<T>(d) + 4 * (size_t)BQ * TN + 4 * BQ + 8 * TN;
+         2 * (size_t)TN * slice_stride<T>(d) + (smax > 0 ? 4 * (size_t)BQ * TN : 0) +
+         4 * BQ + 8 * TN;
 }
 
-// The body of the three entry points, BQ queries a block. scale is read for
+// The body of the four entry points, BQ queries a block. scale is read for
 // int8 tables only; xn2 is not read with NORMS (f32 tables: |x|^2 summed in
 // the tile instead). vec is the rows' copy unit in bytes (16 where V16, else
 // 4 or 1); qunit, where not 0, stages the queries a slice a stage instead of
@@ -519,8 +539,9 @@ __host__ __device__ constexpr size_t smem_bytes(int smax, int d, bool qslice) {
 // given, only candidates lexicographically after (floor_v[i], floor_i[i])
 // enter query i's slate. part (m, n_splits, s), thresh (m,) and tickets
 // (ceil(m / BQ),) are scratch; thresh and tickets start as all ones
-// (tickets at -1).
-template <typename T, int SMAX, bool V16, int BQ, bool NORMS>
+// (tickets at -1). ARGMIN (with NORMS, no row list, floor or slate: SMAX 0)
+// writes only thresh, each query's least key, and reads no other scratch.
+template <typename T, int SMAX, bool V16, int BQ, bool NORMS, bool ARGMIN = false>
 __device__ __forceinline__ void screen_body(
     const float* __restrict__ q, int m, int d, const T* __restrict__ x,
     const float* __restrict__ xn2, const float* __restrict__ scale,
@@ -544,8 +565,8 @@ __device__ __forceinline__ void screen_body(
   float* qs = reinterpret_cast<float*>(sk + BQ * SMAX);     // [BQ][dq] or [2][BQ][KSV]
   // [2][TN][ksp]
   uint8_t* xs = reinterpret_cast<uint8_t*>(qs + (qslice ? 2 * BQ * KSV : BQ * dq));
-  float* dt = reinterpret_cast<float*>(xs + 2 * TN * ksp);  // [BQ][TN]
-  float* qn2s = dt + BQ * TN;                                // [BQ]
+  float* dt = reinterpret_cast<float*>(xs + 2 * TN * ksp);  // [BQ][TN], none with ARGMIN
+  float* qn2s = dt + (ARGMIN ? 0 : BQ * TN);                 // [BQ]
   int* rowid = reinterpret_cast<int*>(qn2s + BQ);            // [2][TN]
 
   const int tid = threadIdx.x;
@@ -573,7 +594,7 @@ __device__ __forceinline__ void screen_body(
   }
   block_qn2<BQ>(q, m, m0, d, qn2s, lane, warp);
   __syncthreads();
-  if (split == 0 && tid < BQ && m0 + tid < m) qn2_out[m0 + tid] = qn2s[tid];
+  if (!ARGMIN && split == 0 && tid < BQ && m0 + tid < m) qn2_out[m0 + tid] = qn2s[tid];
 
   // stages g = (tile, slice of KSV values), double-buffered: stage g + 1 is
   // in flight while stage g computes
@@ -586,6 +607,9 @@ __device__ __forceinline__ void screen_body(
   // the candidates' norms (and scales): fetched early, or (NORMS) summed
   // over the tile's slices
   float xr[CT], sr[CT];
+  unsigned long long best[QT];  // ARGMIN: the least key of each of the thread's queries
+#pragma unroll
+  for (int i = 0; i < QT; ++i) best[i] = NO_KEY;
   for (int g = 0; g < n_stages; ++g) {
     const int tile = g / ns, sl = g - tile * ns;
     const int c0 = c_begin + tile * TN;
@@ -624,110 +648,139 @@ __device__ __forceinline__ void screen_body(
                              min(d - sl * KSV, KSV), ksp, c, acc, xr);
     if (sl != ns - 1) continue;
 
-    const int* rid = rowid + (tile & 1) * TN;
+    if constexpr (ARGMIN) {
+      // the tile into the keys: real rows (c0 + cc < c_end, so the row list
+      // is not read and needs no barrier) of real queries (m0 + qi < m: the
+      // rows past m repeat query m - 1)
 #pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const int cc = c + 32 * j;
-      const int r = rid[cc];
+      for (int j = 0; j < CT; ++j) {
+        const int r = c0 + c + 32 * j;
 #pragma unroll
-      for (int i = 0; i < QT; ++i) {
-        const int qi = QT * qg + i;
-        float gv = acc[i][j];
-        if constexpr (QUANT) gv = __fmul_rn(gv, sr[j]);
-        dt[qi * TN + cc] = r >= 0 ? screen_d2(qn2s[qi], xr[j], gv) : INFINITY;
+        for (int i = 0; i < QT; ++i) {
+          const int qi = QT * qg + i;
+          if (r < c_end && m0 + qi < m)
+            best[i] = min(best[i], lex_key(screen_d2(qn2s[qi], xr[j], acc[i][j]), r));
+        }
+      }
+    } else {
+      const int* rid = rowid + (tile & 1) * TN;
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int cc = c + 32 * j;
+        const int r = rid[cc];
+#pragma unroll
+        for (int i = 0; i < QT; ++i) {
+          const int qi = QT * qg + i;
+          float gv = acc[i][j];
+          if constexpr (QUANT) gv = __fmul_rn(gv, sr[j]);
+          dt[qi * TN + cc] = r >= 0 ? screen_d2(qn2s[qi], xr[j], gv) : INFINITY;
+        }
+      }
+      __syncthreads();
+      for (int t = 0; t < QPW; ++t) {
+        const int qi = QPW * warp + t;
+        if (m0 + qi >= m) continue;  // warp-uniform
+        const bool has_floor = floor_v != nullptr;
+        const unsigned long long fk =
+            has_floor ? lex_key(floor_v[m0 + qi], floor_i[m0 + qi]) : 0ull;
+        for (int g0 = 0; g0 < TN; g0 += 32) {
+          const int cc = g0 + lane;
+          const float v = dt[qi * TN + cc];
+          const unsigned long long key = lex_key(v, c0 + cc);
+          const bool valid = c0 + cc < c_end && !isnan(v) && (!has_floor || fk < key);
+          warp_offer<SMAX>(sk + qi * SMAX, s, key, valid, lane);
+        }
       }
     }
+  }
+  if constexpr (ARGMIN) {
+    // the warp's least key of each query by shuffles (its lanes share qg),
+    // then one atomicMin per warp and query
+#pragma unroll
+    for (int i = 0; i < QT; ++i) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        best[i] = min(best[i], __shfl_xor_sync(FULL, best[i], o));
+      const int gq = m0 + QT * qg + i;
+      if (lane == i && gq < m && best[i] != NO_KEY) atomicMin(thresh + gq, best[i]);
+    }
+  } else {
     __syncthreads();
+    // the sorted partial slate to scratch, its s-th key into the threshold
+    for (int e = tid; e < BQ * s; e += NTHREADS) {
+      const int qi = e / s, j = e % s;
+      const int gq = m0 + qi;
+      if (gq < m) part[((size_t)gq * n_splits + split) * s + j] = sk[qi * SMAX + j];
+    }
+    if (tid < BQ && m0 + tid < m) atomicMin(thresh + m0 + tid, sk[tid * SMAX + s - 1]);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(tickets + mb, 1) == n_splits - 2;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+
+    // the last block of this query block merges, a warp per query: first the
+    // splits' least entries, then, from the splits whose least entry made the
+    // slate, their further entries in order while they beat the slate's worst
+    // entry and lie at or below the threshold
+    constexpr int PER = (SMAX + 31) / 32;
     for (int t = 0; t < QPW; ++t) {
       const int qi = QPW * warp + t;
-      if (m0 + qi >= m) continue;  // warp-uniform
-      const bool has_floor = floor_v != nullptr;
-      const unsigned long long fk =
-          has_floor ? lex_key(floor_v[m0 + qi], floor_i[m0 + qi]) : 0ull;
-      for (int g0 = 0; g0 < TN; g0 += 32) {
-        const int cc = g0 + lane;
-        const float v = dt[qi * TN + cc];
-        const unsigned long long key = lex_key(v, c0 + cc);
-        const bool valid = c0 + cc < c_end && !isnan(v) && (!has_floor || fk < key);
-        warp_offer<SMAX>(sk + qi * SMAX, s, key, valid, lane);
+      const int gq = m0 + qi;
+      if (gq >= m) continue;  // warp-uniform
+      unsigned long long* slate = sk + qi * SMAX;
+      for (int j = lane; j < s; j += 32) slate[j] = EMPTY_KEY;
+      __syncwarp();
+      const unsigned long long th = __ldcg(thresh + gq);  // the threshold T
+      const unsigned long long* pq = part + (size_t)gq * n_splits * s;
+      for (int p0 = 0; p0 < n_splits; p0 += 4 * 32) {
+        unsigned long long key[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int p = p0 + 32 * u + lane;
+          key[u] = p < n_splits ? __ldcg(pq + (size_t)p * s) : EMPTY_KEY;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          warp_offer<SMAX>(slate, s, key[u], key[u] <= th && key[u] != EMPTY_KEY, lane);
       }
-    }
-  }
-  __syncthreads();
-  // the sorted partial slate to scratch, its s-th key into the threshold
-  for (int e = tid; e < BQ * s; e += NTHREADS) {
-    const int qi = e / s, j = e % s;
-    const int gq = m0 + qi;
-    if (gq < m) part[((size_t)gq * n_splits + split) * s + j] = sk[qi * SMAX + j];
-  }
-  if (tid < BQ && m0 + tid < m) atomicMin(thresh + m0 + tid, sk[tid * SMAX + s - 1]);
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(tickets + mb, 1) == n_splits - 2;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-
-  // the last block of this query block merges, a warp per query: first the
-  // splits' least entries, then, from the splits whose least entry made the
-  // slate, their further entries in order while they beat the slate's worst
-  // entry and lie at or below the threshold
-  constexpr int PER = (SMAX + 31) / 32;
-  for (int t = 0; t < QPW; ++t) {
-    const int qi = QPW * warp + t;
-    const int gq = m0 + qi;
-    if (gq >= m) continue;  // warp-uniform
-    unsigned long long* slate = sk + qi * SMAX;
-    for (int j = lane; j < s; j += 32) slate[j] = EMPTY_KEY;
-    __syncwarp();
-    const unsigned long long th = __ldcg(thresh + gq);  // the threshold T
-    const unsigned long long* pq = part + (size_t)gq * n_splits * s;
-    for (int p0 = 0; p0 < n_splits; p0 += 4 * 32) {
-      unsigned long long key[4];
+      int src[PER];  // a split to walk (the split of a slate entry), or -1
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int p = p0 + 32 * u + lane;
-        key[u] = p < n_splits ? __ldcg(pq + (size_t)p * s) : EMPTY_KEY;
+      for (int u = 0; u < PER; ++u) {
+        const int j = lane + 32 * u;
+        const unsigned long long key = j < s ? slate[j] : EMPTY_KEY;
+        src[u] = key != EMPTY_KEY ? static_cast<int>(key & 0xffffffffu) / chunk : -1;
       }
+      for (int next = 1; next < s; next += 4) {
+        bool walking = false;
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        warp_offer<SMAX>(slate, s, key[u], key[u] <= th && key[u] != EMPTY_KEY, lane);
-    }
-    int src[PER];  // a split to walk (the split of a slate entry), or -1
+        for (int u = 0; u < PER; ++u) walking |= src[u] >= 0;
+        if (!__any_sync(FULL, walking)) break;
+        unsigned long long key[PER][4];
 #pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int j = lane + 32 * u;
-      const unsigned long long key = j < s ? slate[j] : EMPTY_KEY;
-      src[u] = key != EMPTY_KEY ? static_cast<int>(key & 0xffffffffu) / chunk : -1;
-    }
-    for (int next = 1; next < s; next += 4) {
-      bool walking = false;
+        for (int u = 0; u < PER; ++u)
 #pragma unroll
-      for (int u = 0; u < PER; ++u) walking |= src[u] >= 0;
-      if (!__any_sync(FULL, walking)) break;
-      unsigned long long key[PER][4];
+          for (int v = 0; v < 4; ++v)
+            key[u][v] = src[u] >= 0 && next + v < s
+                            ? __ldcg(pq + (size_t)src[u] * s + next + v) : EMPTY_KEY;
 #pragma unroll
-      for (int u = 0; u < PER; ++u)
+        for (int u = 0; u < PER; ++u)
 #pragma unroll
-        for (int v = 0; v < 4; ++v)
-          key[u][v] = src[u] >= 0 && next + v < s
-                          ? __ldcg(pq + (size_t)src[u] * s + next + v) : EMPTY_KEY;
+          for (int v = 0; v < 4; ++v)
+            warp_offer<SMAX>(slate, s, key[u][v], key[u][v] <= th && key[u][v] != EMPTY_KEY,
+                             lane);
+        // a split goes on only while its last entry read made the slate
+        const unsigned long long worst = slate[s - 1];
 #pragma unroll
-      for (int u = 0; u < PER; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v)
-          warp_offer<SMAX>(slate, s, key[u][v], key[u][v] <= th && key[u][v] != EMPTY_KEY,
-                           lane);
-      // a split goes on only while its last entry read made the slate
-      const unsigned long long worst = slate[s - 1];
-#pragma unroll
-      for (int u = 0; u < PER; ++u)
-        if (!(key[u][3] < worst && key[u][3] <= th)) src[u] = -1;
-    }
-    for (int j = lane; j < s; j += 32) {
-      const unsigned long long key = slate[j];
-      out_v[(size_t)gq * s + j] = key_value(key);
-      out_i[(size_t)gq * s + j] = static_cast<int>(key & 0xffffffffu);
+        for (int u = 0; u < PER; ++u)
+          if (!(key[u][3] < worst && key[u][3] <= th)) src[u] = -1;
+      }
+      for (int j = lane; j < s; j += 32) {
+        const unsigned long long key = slate[j];
+        out_v[(size_t)gq * s + j] = key_value(key);
+        out_i[(size_t)gq * s + j] = static_cast<int>(key & 0xffffffffu);
+      }
     }
   }
 }
@@ -777,6 +830,54 @@ topk_ed_kernel(const float* __restrict__ q, int m, int d, const float* __restric
                                           tickets, qn2_out, out_v, out_i);
 }
 
+// min_ed: the least (d2, row) of each query over f32 rows x (n, d) taken in
+// order, |x|^2 summed in the tile, BQ queries a block; best (m,) starts as
+// all ones and ends as each query's least key.
+template <bool V16, int BQ>
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
+min_ed_kernel(const float* __restrict__ q, int m, int d, const float* __restrict__ x, int n,
+              int chunk, int n_splits, int vec, int qunit, unsigned long long* best) {
+  screen_body<float, 0, V16, BQ, true, true>(q, m, d, x, nullptr, nullptr, nullptr, n, 1,
+                                             chunk, n_splits, vec, qunit, nullptr, nullptr,
+                                             nullptr, best, nullptr, nullptr, nullptr,
+                                             nullptr);
+}
+
+__global__ void min_ed_unpack_kernel(const unsigned long long* __restrict__ best, int m,
+                                     float* __restrict__ out_v, int* __restrict__ out_i) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const unsigned long long k = best[i];
+  if (k == NO_KEY) {  // no key: only with no rows (a NaN d2 gives a key, after +inf's)
+    out_v[i] = INFINITY;
+    out_i[i] = -1;
+    return;
+  }
+  out_v[i] = key_value(k);
+  out_i[i] = static_cast<int>(k & 0xffffffffu);
+}
+
+// The widest copy unit that every row start of a table at x is aligned to.
+int copy_unit(const void* x, size_t row_bytes) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(x);
+  return (base % 16 == 0 && row_bytes % 16 == 0) ? 16
+         : (base % 4 == 0 && row_bytes % 4 == 0) ? 4 : 1;
+}
+
+// A launch's dynamic shared memory (slates of smax entries) and how it
+// stages the queries: whole while that leaves two blocks an SM (or takes no
+// more than slices would; qunit 0), else a slice a stage in units of qunit
+// bytes.
+template <typename T, int BQ>
+int query_staging(int smax, const float* q, int d, int* qunit) {
+  const size_t whole = smem_bytes<T, BQ>(smax, d, false);
+  const size_t sliced = smem_bytes<T, BQ>(smax, d, true);
+  const bool qslice = whole > TWO_BLOCK_SMEM && sliced < whole;
+  const bool q16 = reinterpret_cast<uintptr_t>(q) % 16 == 0 && d % 4 == 0;
+  *qunit = !qslice ? 0 : q16 ? 16 : 4;
+  return static_cast<int>(qslice ? sliced : whole);
+}
+
 // The launch of the T screen's kernel (topk_ed's with NORMS) over query
 // blocks of BQ, with the 16-byte copy unit (V16) or the one the kernel is
 // given.
@@ -787,14 +888,8 @@ cudaError_t launch_kernel(int n_splits, cudaStream_t stream, const float* q, int
                           const int* floor_i, unsigned long long* part,
                           unsigned long long* thresh, int* tickets, float* qn2, float* out_v,
                           int* out_i) {
-  // the queries whole in shared memory while that leaves two blocks an SM
-  // (or takes no more than slices would), else a slice a stage
-  const size_t whole = smem_bytes<T, BQ>(SMAX, d, false);
-  const size_t sliced = smem_bytes<T, BQ>(SMAX, d, true);
-  const bool qslice = whole > TWO_BLOCK_SMEM && sliced < whole;
-  const int smem = static_cast<int>(qslice ? sliced : whole);
-  const bool q16 = reinterpret_cast<uintptr_t>(q) % 16 == 0 && d % 4 == 0;
-  const int qunit = !qslice ? 0 : q16 ? 16 : 4;
+  int qunit;
+  const int smem = query_staging<T, BQ>(SMAX, q, d, &qunit);
   // the query blocks of one split side by side, so that they read its rows
   // at about the same time and the second read comes from L2
   const dim3 grid((m + BQ - 1) / BQ, n_splits);
@@ -837,11 +932,7 @@ int launch_t(const float* q, int m, int d, const T* x, const float* xn2, const f
   cudaError_t err =
       cudaMemsetAsync(thresh, 0xff, 8 * (size_t)m + 4 * (size_t)((m + BM - 1) / BM), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the widest copy unit that every row start of the table is aligned to
-  const uintptr_t base = reinterpret_cast<uintptr_t>(x);
-  const size_t row_bytes = (size_t)d * sizeof(T);
-  const int vec = (base % 16 == 0 && row_bytes % 16 == 0) ? 16
-                  : (base % 4 == 0 && row_bytes % 4 == 0) ? 4 : 1;
+  const int vec = copy_unit(x, (size_t)d * sizeof(T));
 #define COCONUT_LAUNCH(V16, BQ)                                                             \
   return static_cast<int>(launch_kernel<T, SMAX, V16, BQ, NORMS>(                          \
       n_splits, stream, q, m, d, x, xn2, scale, rows, n, s, chunk, vec, floor_v, floor_i,  \
@@ -878,12 +969,28 @@ int launch(const void* q, int m, int d, const void* x, const void* scale, const 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The launch of min_ed's kernel over query blocks of BQ: the grid of the
+// slate kernels, shared memory with no slate.
+template <bool V16, int BQ>
+cudaError_t launch_min(const float* q, int m, int d, const float* x, int n, int chunk,
+                       int n_splits, int vec, unsigned long long* best, cudaStream_t stream) {
+  int qunit;
+  const int smem = query_staging<float, BQ>(0, q, d, &qunit);
+  const dim3 grid((m + BQ - 1) / BQ, n_splits);
+  const cudaError_t err = cudaFuncSetAttribute(
+      min_ed_kernel<V16, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  min_ed_kernel<V16, BQ><<<grid, NTHREADS, smem, stream>>>(q, m, d, x, n, chunk, n_splits, vec,
+                                                           qunit, best);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// The layout the host wrapper plans launches of the three screens and of
-// topk_ed by:
+// The layout the host wrapper plans launches of the three screens, of
+// topk_ed and of min_ed by:
 // out[0] the most slate entries one pass holds, out[1] queries per block
 // (the narrower block; the scratch's tickets count by it), out[2]
 // candidates per tile.
@@ -929,6 +1036,33 @@ int coconut_topk_ed(const void* q, int m, int d, const void* x, int n, int s, in
                     void* qn2, void* out_v, void* out_i, void* stream) {
   return launch<float, true>(q, m, d, x, nullptr, nullptr, nullptr, n, s, chunk, n_splits,
                              floor_v, floor_i, scratch, qn2, out_v, out_i, stream);
+}
+
+// min_ed: per query the lexicographic (d2, row) minimum over x (n, d) f32,
+// n >= 1, m >= 1, with the splits planned as topk_ed's at s = 1. best (m,)
+// uint64 is scratch; out_v (m,) f32, out_i (m,) int32. A memset, the scan
+// and an m-thread unpack on one stream.
+int coconut_min_ed(const void* q, int m, int d, const void* x, int n, int chunk, int n_splits,
+                   void* best, void* out_v, void* out_i, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* b = static_cast<unsigned long long*>(best);
+  cudaError_t err = cudaMemsetAsync(b, 0xff, sizeof(unsigned long long) * (size_t)m, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* xf = static_cast<const float*>(x);
+  const int vec = copy_unit(x, (size_t)d * sizeof(float));
+  // the screens' blocks: 32 queries where the batch fills them and the rows
+  // come in 16-byte units
+  if (m > BM && vec == 16)
+    err = launch_min<true, BM_WIDE>(qf, m, d, xf, n, chunk, n_splits, vec, b, st);
+  else if (vec == 16)
+    err = launch_min<true, BM>(qf, m, d, xf, n, chunk, n_splits, vec, b, st);
+  else
+    err = launch_min<false, BM>(qf, m, d, xf, n, chunk, n_splits, vec, b, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  min_ed_unpack_kernel<<<(m + 255) / 256, 256, 0, st>>>(b, m, static_cast<float*>(out_v),
+                                                        static_cast<int*>(out_i));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

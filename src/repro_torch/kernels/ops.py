@@ -1,9 +1,9 @@
 """Public wrappers around the hand-written kernels.
 
 Dispatch follows the device of the tensors: a CUDA tensor goes to the CUDA
-kernel (``csrc/screen_fused.cu`` for the f32, bf16 and int8 screens and
-``topk_ed``, ``csrc/screen_select.cu`` for ``min_ed``,
-``csrc/summarize.cu`` for ``paa`` and ``sax_pack``,
+kernel (``csrc/screen_fused.cu`` for the f32, bf16 and int8 screens,
+``topk_ed`` and ``min_ed``, ``csrc/summarize.cu`` for ``paa`` and
+``sax_pack``,
 ``csrc/lower_bound.cu`` for ``mindist``; built on first use by
 :mod:`._build`) or the call raises; a CPU tensor goes to the plain PyTorch
 version in :mod:`.ref`. There is no fallback from one to the other.
@@ -358,11 +358,17 @@ def min_ed(q: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
         return ref.min_ed_ref(q, x)
     if dev.type != "cuda":
         raise ValueError(f"no min_ed for device {dev}")
+    return _launch_min_ed(q.contiguous(), x.contiguous())
+
+
+def _launch_min_ed(q: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel of :func:`min_ed`: the fused screen's body with a min
+    epilogue, one launch over the splits of ``topk_ed``'s pass at k = 1."""
     from . import _build
 
-    layout = _build.layout()
-    q, x = q.contiguous(), x.contiguous()
-    chunk, n_splits = _splits(dev, n, m, 1, layout)
+    dev = q.device
+    m, n = q.shape[0], x.shape[0]
+    chunk, n_splits = _splits(dev, n, m, 1, _build.layout()["screen"])
     best = torch.empty((m,), dtype=torch.int64, device=dev)  # 64-bit (d2, row) keys
     out_v = torch.empty((m,), dtype=torch.float32, device=dev)
     out_i = torch.empty((m,), dtype=torch.int32, device=dev)

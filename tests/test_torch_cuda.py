@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.core import verify_engine as pve
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -510,7 +510,7 @@ def test_cuda_slates_beyond_one_pass_match_plain(cuda, kind, k):
 
 
 @pytest.mark.parametrize("m,n,d", [(16, 100003, 256), (64, 4097, 96), (5, 1, 32),
-                                   (3, 130, 200)])
+                                   (3, 130, 200), (17, 5000, 256), (33, 5000, 256)])
 def test_cuda_min_ed_matches_plain(cuda, m, n, d):
     rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
@@ -528,6 +528,31 @@ def test_cuda_min_ed_matches_plain(cuda, m, n, d):
     tol = 1e-5 * float((q * q).sum(-1).max() + (x * x).sum(-1).max())
     _hold_slate(v[:, None], i[:, None], pfull, pord, 1, tol)
     assert int(i[0]) == n // 2 and abs(float(v[0])) < tol
+
+
+@pytest.mark.parametrize("m", [16, 17, 33])
+def test_cuda_min_ed_tie_across_a_split_border(cuda, m):
+    """A row and its copy in the next split of the plan, each asked exactly
+    by one query (d2 about 0, maybe below): the lower row wins, in one
+    launch, with topk_ed's k = 1 answer bit for bit; at 16-query blocks and
+    at partial 32-query blocks."""
+    rng = np.random.default_rng(m)
+    n, d = 100003, 256
+    chunk, n_splits = ops._splits(cuda, n, m, 1, _build.layout()["screen"])
+    assert n_splits > 1
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(cuda)
+    a = [3, chunk - 1, 2 * chunk + 5]  # copies at a + chunk: the next split
+    x[[r + chunk for r in a]] = x[a]
+    q[: len(a)] = x[a]
+    ops.reset_launches()
+    v, i = ops.min_ed(q, x)
+    tv, ti = ops.topk_ed(q, x, 1)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["min_ed"] == 1
+    assert i[: len(a)].tolist() == a
+    assert torch.equal(i, ti[:, 0]) and torch.equal(v.view(torch.int32),
+                                                    tv[:, 0].view(torch.int32))
 
 
 def test_cuda_min_ed_ties_negative_zero_and_empty(cuda):

@@ -742,7 +742,7 @@ def test_minima_walk_over_the_splits_ops_makes(shape, case, s, monkeypatch):
 
 class _RecordingLibrary:
     """A stand-in for the built kernel library: records each
-    ``coconut_topk_ed`` call and launches nothing."""
+    ``coconut_topk_ed`` and ``coconut_min_ed`` call and launches nothing."""
 
     def __init__(self):
         self.calls = []
@@ -751,27 +751,26 @@ class _RecordingLibrary:
         self.calls.append(args)
         return 0
 
+    def coconut_min_ed(self, *args):
+        self.calls.append(args)
+        return 0
 
-def test_topk_ed_wrapper_plans_from_the_screen_layout(monkeypatch):
-    """``ops.topk_ed``'s CUDA wrapper (run here over CPU tensors against a
-    recording library) plans each pass from the fused kernel's layout, not
-    min_ed's: its splits are ``ops._splits`` of the screen layout, its one
-    int64 scratch holds the partial slates, the thresholds and a ticket per
-    query block of that layout, and it calls ``coconut_topk_ed`` once per
-    pass, counting each call once. A slate of 200 takes two passes, the
-    second after the first's last entry."""
+
+def _record_launches(monkeypatch):
+    """The recording library in place of the built one, the fused kernel's
+    layout as the library's only layout (so that a plan from any other
+    fails), the card's 132 SMs standing in for the CPU's, and a record of
+    the int64 tensors made (the wrappers' scratch), by data pointer.
+    Returns (library, screen layout, int64 tensors)."""
     from repro_torch.kernels import _build
 
     c = _fused_constants()
     screen = {"tile": c["TN"], "query_block": c["BM"], "pass_slate": c["PASS_SLATE"]}
-    # min_ed's layout made unlike the screen's, so that a plan from it shows
-    monkeypatch.setattr(_build, "layout",
-                        lambda: {"query_block": 1, "tile": 32, "screen": screen})
+    monkeypatch.setattr(_build, "layout", lambda: {"screen": screen})
     lib = _RecordingLibrary()
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(ops, "_stream", lambda dev: 0)
-    cpu = torch.device("cpu")
-    monkeypatch.setitem(ops._SM_COUNT, cpu, 132)
+    monkeypatch.setitem(ops._SM_COUNT, torch.device("cpu"), 132)
     int64 = {}
     real_empty = torch.empty
 
@@ -782,6 +781,20 @@ def test_topk_ed_wrapper_plans_from_the_screen_layout(monkeypatch):
         return t
 
     monkeypatch.setattr(torch, "empty", empty)
+    return lib, screen, int64
+
+
+def test_topk_ed_wrapper_plans_from_the_screen_layout(monkeypatch):
+    """``ops.topk_ed``'s CUDA wrapper (run here over CPU tensors against a
+    recording library) plans each pass from the fused kernel's layout: its
+    splits are ``ops._splits`` of the screen layout, its one int64 scratch
+    holds the partial slates, the thresholds and a ticket per query block
+    of that layout, and it calls ``coconut_topk_ed`` once per pass, counting
+    each call once. A slate of 200 takes two passes, the second after the
+    first's last entry."""
+    c = _fused_constants()
+    lib, screen, int64 = _record_launches(monkeypatch)
+    cpu = torch.device("cpu")
     m, n, d, k = 3, 5000, 24, 200
     rng = np.random.default_rng(0)
     q = _t(rng.standard_normal((m, d)).astype(np.float32))
@@ -800,6 +813,145 @@ def test_topk_ed_wrapper_plans_from_the_screen_layout(monkeypatch):
         assert (chunk, n_splits) == ops._splits(cpu, n, m, s, screen)
         assert int64[scratch].numel() == m * n_splits * s + m + -(-m_blocks // 2)
         assert (fv is None) == (fi is None) == (s == c["PASS_SLATE"])
+
+
+@pytest.mark.parametrize("m,n,d", [(5, 1, 8), (17, 5000, 24), (64, 100003, 8)])
+def test_min_ed_wrapper_plans_from_the_screen_layout(m, n, d, monkeypatch):
+    """``ops.min_ed``'s CUDA wrapper (run here over CPU tensors against a
+    recording library) makes one ``coconut_min_ed`` call per batch over the
+    splits of topk_ed's pass at k = 1 (``ops._splits`` of the screen
+    layout, s = 1), with a scratch of m int64 keys, and counts it once."""
+    lib, screen, int64 = _record_launches(monkeypatch)
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(m)
+    q = _t(rng.standard_normal((m, d)).astype(np.float32))
+    x = _t(rng.standard_normal((n, d)).astype(np.float32))
+    ops.reset_launches()
+    v, i = ops._launch_min_ed(q, x)
+    assert v.shape == i.shape == (m,) and v.dtype == torch.float32 and i.dtype == torch.int32
+    assert ops.LAUNCHES["min_ed"] == len(lib.calls) == 1
+    assert sum(ops.LAUNCHES.values()) == 1
+    q_ptr, cm, cd, x_ptr, cn, chunk, n_splits, best, out_v, out_i, stream = lib.calls[0]
+    assert (q_ptr, cm, cd, x_ptr, cn, stream) == (q.data_ptr(), m, d, x.data_ptr(), n, 0)
+    assert (chunk, n_splits) == ops._splits(cpu, n, m, 1, screen)
+    assert (out_v, out_i) == (v.data_ptr(), i.data_ptr())
+    assert int64[best].shape == (m,)
+
+
+# ---------------------------------------------------------------------------
+# min_ed's epilogue on the fused body, emulated in plain torch
+# ---------------------------------------------------------------------------
+_NO_KEY = (1 << 63) - 1  # the all-ones key, in the signed order below
+
+
+def _lex_keys(d2, rows):
+    """``lex_key`` of csrc/screen_fused.cu as int64s whose signed order is
+    the keys' unsigned order (the top bit flipped): the d2 bits made
+    order-preserving, -0.0 first made +0.0, then the row below them."""
+    bits = (d2 + 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = torch.where(bits >= 1 << 31, 0xFFFFFFFF - bits, bits | (1 << 31))
+    return (b - (1 << 31)) * (1 << 32) + rows
+
+
+def _unpack_keys(keys):
+    """``min_ed_unpack_kernel``: each key's d2 and row."""
+    b = (keys >> 32) + (1 << 31)
+    bits = torch.where(b >= 1 << 31, b & 0x7FFFFFFF, 0xFFFFFFFF - b)
+    bits = torch.where(bits >= 1 << 31, bits - (1 << 32), bits)
+    return bits.to(torch.int32).view(torch.float32), (keys & 0xFFFFFFFF).to(torch.int32)
+
+
+def _min_fold(d2, chunk, n_splits, bq, rng):
+    """min_ed's epilogue, emulated: per split, query block and warp, the
+    least key of the rows the warp's lanes take in each of the split's tiles
+    (real rows only) for the warp's queries (real queries only: the rows of
+    a block past m repeat query m - 1); then those minima folded into the
+    answer with ``min`` in a shuffled order, as the blocks' atomicMins
+    land. Returns the (m,) keys and the count of (split, block, warp) minima
+    that held no key."""
+    c = _fused_constants()
+    tn, qt, warps = c["TN"], c["QT"], c["NTHREADS"] // 32
+    m, n = d2.shape
+    ct = bq * tn // c["NTHREADS"] // qt
+    qgroups = bq // qt  # warps w and w + qgroups share queries, split a tile's rows
+    keys = _lex_keys(d2, torch.arange(n))
+    minima, empty = [], 0
+    for split in range(n_splits):
+        lo, hi = split * chunk, min(n, (split + 1) * chunk)
+        rows = torch.arange(lo, max(lo, hi))
+        taken = 0
+        for mb in range(-(-m // bq)):
+            for warp in range(warps):
+                qg, grp = warp % qgroups, warp // qgroups
+                cols = rows[((rows - lo) % tn) // (32 * ct) == grp]
+                taken += len(cols) if mb == 0 and qg == 0 else 0
+                queries = [g for g in (mb * bq + qt * qg + i for i in range(qt)) if g < m]
+                if not queries:
+                    continue
+                if len(cols) == 0:
+                    empty += 1
+                    continue
+                minima.append((queries, keys[queries][:, cols].amin(1)))
+        assert taken == len(rows)  # the warps of a query group take each row once
+    best = torch.full((m,), _NO_KEY, dtype=torch.int64)
+    for j in rng.permutation(len(minima)):
+        queries, k = minima[j]
+        best[queries] = torch.minimum(best[queries], k)
+    return best, empty
+
+
+@pytest.mark.parametrize("m", [5, 17, 33])
+@pytest.mark.parametrize("case", ["random", "border-tie", "signed-zero", "pad-split"])
+def test_min_fold_over_the_splits_ops_makes(case, m, monkeypatch):
+    """min_ed's epilogue over the splits ``ops._splits`` makes for topk_ed's
+    pass at k = 1 (8 SMs standing in for the card's 132, so that a split
+    holds several tiles and the last one is short), at 16-query blocks (m =
+    5) and 32-query blocks (m = 17, 33; partial blocks): the folded keys
+    give ``ref.min_ed_ref``'s answer and ``topk_ed_ref``'s k = 1 answer bit
+    for bit, whatever order the minima land in. Cases: random rows; a row
+    and its copy in the next split (the lower row wins); d2 of +0.0 and
+    -0.0 tied across splits (the lower row wins, as +0.0); a split past the
+    last row, of pad rows only (it folds nothing)."""
+    c = _fused_constants()
+    cpu = torch.device("cpu")
+    monkeypatch.setitem(ops._SM_COUNT, cpu, 8)
+    layout = {"tile": c["TN"], "query_block": c["BM"], "pass_slate": c["PASS_SLATE"]}
+    n, d = 5000, 24
+    bq = c["BM"] if m <= c["BM"] else c["BM_WIDE"]
+    chunk, n_splits = ops._splits(cpu, n, m, 1, layout)
+    assert chunk > c["TN"] and n % chunk and n_splits > 2
+    rng = np.random.default_rng(m + len(case))
+    q = rng.standard_normal((m, d)).astype(np.float32)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    a = int(rng.integers(0, chunk))
+    if case == "border-tie":  # row a (split 0) copied into split 1, asked exactly
+        x[a + chunk] = x[a]
+        q[0] = x[a]
+    q, x = _t(q), _t(x)
+    # the d2 of topk_ed_ref (and so of min_ed_ref), the same expression
+    d2 = (q * q).sum(-1)[:, None] + (x * x).sum(-1)[None, :] - 2.0 * (q @ x.T)
+    if case == "signed-zero":  # +0.0 and -0.0 tied, a split apart, both ways round
+        d2 = d2.abs() + 1.0
+        d2[0::2, a], d2[0::2, a + chunk] = 0.0, -0.0
+        d2[1::2, a], d2[1::2, a + chunk] = -0.0, 0.0
+    splits = n_splits + 1 if case == "pad-split" else n_splits
+    best, empty = _min_fold(d2, chunk, splits, bq, rng)
+    assert (empty > 0) == (case == "pad-split")  # only the pad split's warps hold no key
+    v, i = _unpack_keys(best)
+    want_v, want_i = ref._lex_topk(d2, 1)
+    want_v = want_v[:, 0] + 0.0  # the key keeps +0.0 for -0.0
+    assert torch.equal(i, want_i[:, 0])
+    assert torch.equal(v.view(torch.int32), want_v.view(torch.int32))
+    if case == "signed-zero":
+        assert (i == a).all() and (v.view(torch.int32) == 0).all()
+    else:
+        rv, ri = ref.min_ed_ref(q, x)
+        tv, ti = ref.topk_ed_ref(q, x, 1)
+        assert torch.equal(i, ri) and torch.equal(i, ti[:, 0])
+        assert torch.equal(v.view(torch.int32), rv.view(torch.int32))
+        assert torch.equal(v.view(torch.int32), tv[:, 0].view(torch.int32))
+    if case == "border-tie":
+        assert int(i[0]) == a
 
 
 def _xs_off(row, kk, ksp):
