@@ -75,7 +75,8 @@ Phases, each reported on lines of its own:
             often (min_ed at the 1-NN phase's, mindist at the pruning
             front's): its device time, its plain version, one PyTorch
             library yardstick (used nowhere in the port) and the least time
-            the card could take (its bound).
+            the card could take (its bound); paa and sax_pack also over the
+            whole 1,024,000-series set (logged).
 
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -415,8 +416,8 @@ class SummarizeCase:
         b, cfg = self.x.shape[0], self.cfg
         if self.name == "paa":
             nbytes = 4 * b * self.x.shape[1] + 4 * b * cfg.n_segments
-        else:
-            nbytes = (4 * b * cfg.n_segments * 2 + 4 * b * cfg.key_words
+        else:  # symbols int32, key words int64
+            nbytes = (4 * b * cfg.n_segments * 2 + 8 * b * cfg.key_words
                       + 4 * self.bps.numel())
         return _bound(nbytes, 0.0)
 
@@ -550,27 +551,32 @@ def device_times(prof) -> collections.Counter:
 def kernel_device_ms(torch, fn, reps, names):
     """Device time per launch of the kernels alone (``names``, e.g. min_ed's
     scan and unpack, with its split between them) from the profiler's CUPTI
-    trace, averaged over the launches the trace kept; (None, {}) where it
-    kept none of some kernel's launches."""
+    trace, averaged over the launches the trace kept. A trace that kept
+    none of some kernel's launches (it drops launches of short sessions) is
+    taken again with twice the launches, up to three traces; (None, {}) if
+    none kept some of each."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    split, kept = {}, {}
-    for k in names:
-        evs = [e for e in prof.key_averages() if k in e.key
-               and not str(getattr(e, "device_type", "")).endswith("CPU")]
-        kept[k] = sum(e.count for e in evs)
-        if kept[k] == 0:
-            return None, {}
-        split[k] = sum(e.self_device_time_total for e in evs) / 1e3 / kept[k]
-    if min(kept.values()) < reps:
-        log(f"timing: the trace kept {kept} of {reps} launches each")
-    return sum(split.values()), split
+    for attempt in range(3):
+        n = reps << attempt
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        split, kept = {}, {}
+        for k in names:
+            evs = [e for e in prof.key_averages() if k in e.key
+                   and not str(getattr(e, "device_type", "")).endswith("CPU")]
+            kept[k] = sum(e.count for e in evs)
+            if kept[k]:
+                split[k] = sum(e.self_device_time_total for e in evs) / 1e3 / kept[k]
+        if min(kept.values()) < n:
+            log(f"timing: the trace kept {kept} of {n} launches each")
+        if min(kept.values()) > 0:
+            return sum(split.values()), split
+    return None, {}
 
 
 def time_case(torch, case, reps=50):

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Time the three screens (``ops.screen_select`` over f32 and bf16 tables,
 ``ops.screen_select_quant`` over int8) on one NVIDIA card, each at five
-shapes of the kernel phase and the serving pass, and the ``topk_ed`` and
-``min_ed`` kernels beside them (``topk_ed`` also at k = 1 at ``min_ed``'s
-shapes: the slate route to the same answer); optionally of another source
+shapes of the kernel phase and the serving pass, and the ``topk_ed``,
+``min_ed``, ``paa`` and ``sax_pack`` kernels beside them (``topk_ed`` also
+at k = 1 at ``min_ed``'s shapes: the slate route to the same answer;
+``paa`` and ``sax_pack`` at the query path's 16 rows and over 1,024,000
+rows of the seismic table, w = 16, c = 8); optionally of another source
 tree of the port, so that two builds compare on one card.
 
     python3 scripts/bench_screen_quant.py [--tree DIR] [--label NAME]
@@ -15,7 +17,8 @@ tree of the port, so that two builds compare on one card.
 runs on one card get the same inputs: ``--save`` keeps every kernel output
 and ``--compare`` reports, per shape, whether the outputs of an earlier run
 are equal bit for bit. Each case is first held against the plain version
-within the engine's certificate bound (``chip_smoke.Case.check``).
+within the engine's certificate bound (``chip_smoke.Case.check``), or bit
+for bit (``paa``, ``sax_pack``).
 Kernel times are the profiler's device time per launch of the kernels named
 in ``KERNELS`` (and of the memsets, logged apart); ``library`` is the
 PyTorch yardstick of ``chip_smoke.py``. Prints one line per case and, last,
@@ -36,7 +39,8 @@ ROOT = Path(__file__).resolve().parents[1]
 # the device kernels of the wrappers, in every build of the port so far
 KERNELS = ("screen_partial_kernel", "slate_merge_kernel", "screen_quant_kernel",
            "screen_dense_kernel", "topk_ed_kernel", "min_ed_kernel",
-           "min_ed_unpack_kernel")
+           "min_ed_unpack_kernel", "sax_pack_kernel", "paa_kernel")
+SUMMARY_ROWS = 1_024_000  # the seismic set of chip_smoke.py's serve phases
 TABLE_ROWS = 1 << 20
 D = 256
 S = 13
@@ -71,7 +75,7 @@ def main() -> int:
     ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--others", action="store_true",
-                    help="also the topk_ed and min_ed kernels")
+                    help="also the topk_ed, min_ed, paa and sax_pack kernels")
     ap.add_argument("--save", default=None)
     ap.add_argument("--compare", default=None)
     ap.add_argument("--reps", type=int, default=50)
@@ -85,6 +89,7 @@ def main() -> int:
     sys.path.insert(1, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke as cs
+    from repro_torch.core import SummarizationConfig
     from repro_torch.kernels import _build, ops, ref
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -93,7 +98,8 @@ def main() -> int:
     print(f"[{args.label}] {smi}; ops from {ops.__file__}", flush=True)
     _build.library()
     for ln in _build.BUILD_LOG.splitlines():
-        if any(w in ln for w in ("screen_", "topk_ed", "min_ed", "registers", "spill")):
+        if any(w in ln for w in ("screen_", "topk_ed", "min_ed", "sax_pack", "paa",
+                                 "registers", "spill")):
             print(f"[{args.label}] ptxas: {ln.strip()}")
 
     dev = torch.device("cuda")
@@ -117,7 +123,12 @@ def main() -> int:
                   ("min_ed m=16 full 2^20", "min_ed", 16, None),
                   ("min_ed m=64 full 2^20", "min_ed", 64, None),
                   ("topk_ed k=1 m=16 full 2^20", "topk1", 16, None),
-                  ("topk_ed k=1 m=64 full 2^20", "topk1", 64, None)]
+                  ("topk_ed k=1 m=64 full 2^20", "topk1", 64, None),
+                  ("paa 16 rows", "paa", 16, None),
+                  ("paa 1024000 rows", "paa", SUMMARY_ROWS, None),
+                  ("sax_pack 16 rows", "sax_pack", 16, None),
+                  ("sax_pack 1024000 rows", "sax_pack", SUMMARY_ROWS, None)]
+    summary_cfg = SummarizationConfig(series_len=D, n_segments=16, card_bits=8)
     stored = {}
     saved, results = {}, []
     earlier = torch.load(args.compare) if args.compare else {}
@@ -136,13 +147,20 @@ def main() -> int:
             case = cs.TopkCase(torch, ops, ref, qq, x, S if kind == "topk" else 1)
             err, share, ndiff = case.check()
             check = f"max|delta d2| {err:.3e} ({share:.2e} of the bound), {ndiff} swapped"
+        elif kind in ("paa", "sax_pack"):
+            x = xc[:m] if kind == "paa" else ref.paa_ref(xc[:m], 16).contiguous()
+            case = cs.SummarizeCase(torch, ops, ref, kind, x, summary_cfg)
+            err = cs.case_error(torch, case)
+            check = f"max|kernel - plain| {err:.3e}"
+            if err != 0:
+                raise SystemExit(f"bench_screen_quant: {name} differs from its plain version")
         else:
             case = cs.MinEdCase(torch, ops, ref, q[m], xc)
             err, share, ndiff, _ = case.check()
             check = f"max|delta d2| {err:.3e} ({share:.2e} of the bound), {ndiff} swapped"
         out = case.kernel()
         torch.cuda.synchronize()
-        saved[name] = [t.cpu() for t in out]
+        saved[name] = [t.cpu() for t in (out if isinstance(out, tuple) else (out,))]
         same = None
         if name in earlier:
             same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -444,14 +444,14 @@ def sax_and_keys(p: torch.Tensor,
                          "sax_pack kernel's limits")
     p = p.contiguous()
     sym = torch.empty((b, w), dtype=torch.int32, device=dev)
-    words = torch.empty((b, nw), dtype=torch.int32, device=dev)
+    keys = torch.empty((b, nw), dtype=torch.int64, device=dev)  # zero-extended words
     rc = _build.library().coconut_sax_pack(p.data_ptr(), b, w, bps.data_ptr(),
                                            bps.numel(), c, nw, sym.data_ptr(),
-                                           words.data_ptr(), _stream(dev))
+                                           keys.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"sax_pack kernel launch failed with CUDA error {rc}")
     LAUNCHES["sax_pack"] += 1
-    return sym, words.to(torch.int64) & 0xFFFFFFFF
+    return sym, keys
 
 
 def summarize(x: torch.Tensor, cfg: SummarizationConfig

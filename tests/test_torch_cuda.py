@@ -400,7 +400,9 @@ def test_cuda_topk_ed_one_launch_per_pass(cuda, k):
 
 @pytest.mark.parametrize("b,n,w,c", [(1000, 256, 16, 8), (257, 96, 12, 6),
                                      (33, 64, 8, 4), (5, 128, 16, 2),
-                                     (40, 16384, 16, 8), (7, 65536, 16, 8)])
+                                     (40, 16384, 16, 8), (7, 65536, 16, 8),
+                                     (513, 256, 32, 8), (300, 256, 64, 4),
+                                     (16, 256, 16, 8)])
 def test_cuda_summarize_matches_plain(cuda, b, n, w, c):
     """PAA sums in the plain version's order, so values, symbols and keys
     are bitwise the plain version's; keys equal the host's interleave.
@@ -430,6 +432,51 @@ def test_cuda_summarize_matches_plain(cuda, b, n, w, c):
     assert ops.sax_and_keys(torch.zeros((0, w), device=cuda), cfg)[1].shape == (
         0, cfg.key_words)
     assert ops.LAUNCHES["paa"] == ops.LAUNCHES["sax_pack"] == 0
+
+
+@pytest.mark.parametrize("b", [1, 16, 33, 1_024_000])
+def test_cuda_sax_and_keys_planted_values_in_one_launch(cuda, b):
+    """Symbols and int64 key words bit for bit the plain version's, with
+    values planted on breakpoints, NaN and infinities, from one
+    ``sax_pack_kernel`` launch: the launch count says so, and the profiler's
+    trace holds no other kernel (the words come out as int64, no elementwise
+    conversion after it; the trace may drop launches, never add them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import summarization
+
+    cfg = summarization.SummarizationConfig(series_len=256, n_segments=16, card_bits=8)
+    rng = np.random.default_rng(21)
+    ph = rng.standard_normal((b, 16)).astype(np.float32)
+    bph = summarization.breakpoints(8)
+    planted = np.array([bph[0], bph[127], bph[-1], np.nan, np.inf, -np.inf, -0.0],
+                       np.float32)
+    at = rng.choice(ph.size, size=min(ph.size, 1000), replace=False)
+    ph.reshape(-1)[at] = np.resize(planted, at.size)
+    p = torch.from_numpy(ph).to(cuda)
+    ops.sax_and_keys(p, cfg)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    sym, keys = ops.sax_and_keys(p, cfg)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["sax_pack"] == 1
+    assert sym.dtype == torch.int32 and keys.dtype == torch.int64
+    psym, pkeys = ref.sax_pack_ref(p, ops.breakpoint_table(8, p.device), 8, cfg.key_words)
+    assert torch.equal(sym, psym) and torch.equal(keys, pkeys)
+    assert int(keys.min()) >= 0 and int(keys.max()) < 2 ** 32
+    calls = 4
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ops.sax_and_keys(p, cfg)
+        torch.cuda.synchronize()
+    names = collections.Counter()
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CPU"):
+            names[e.key] += e.count
+    sax = sum(c for name, c in names.items() if "sax_pack_kernel" in name)
+    assert 0 < sax <= calls, names
+    others = [n for n in names if "kernel" in n.lower() and "sax_pack_kernel" not in n]
+    assert not others, names
 
 
 def test_kernel_backend_answers_do_not_depend_on_the_device(cuda):

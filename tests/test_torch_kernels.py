@@ -994,3 +994,200 @@ def test_staged_slice_layout(elt, width):
             assert row * ksp + ((((kc ^ sw) & 7) | (kc & ~7)) << 4) == off[row, 16 * kc]
         for kk in range(width // 16 * 16, width, elt):  # its tail offset
             assert row * ksp + (_xs_off(0, kk, ksp) ^ (sw << 4)) == off[row, kk]
+
+
+# ---------------------------------------------------------------------------
+# sax_pack's layout (csrc/summarize.cu): (row, segment) threads, the search
+# down the breadth-first breakpoints, its steps' warp votes as bit planes,
+# whole words built from the planes' pieces
+# ---------------------------------------------------------------------------
+SUMMARIZE_CU = Path(ops.__file__).resolve().parent / "csrc" / "summarize.cu"
+
+
+def _summarize_constants():
+    """The ``constexpr int`` constants of the summarize source."""
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", SUMMARIZE_CU.read_text())}
+
+
+def _sax_rows_per_sub(w, threads):
+    """Rows of one sub-tile, as ``coconut_sax_pack`` plans them: 32 / w
+    whole rows a warp, or ceil(w / 32) warps a row."""
+    warps = threads // 32
+    return warps * (32 // w) if w <= 32 else warps // -(-w // 32)
+
+
+def _sax_task(i, w, c, nw, rows_per_sub, warps):
+    """Word i of a tile as the kernel plans it: (first piece's plane, the
+    row's first lane, where the piece starts against the word, its slice,
+    count of pieces)."""
+    per_warp = 32 // w if w <= 32 else 1
+    warps_per_row = 1 if w <= 32 else -(-w // 32)
+    rb, t = divmod(i, nw)
+    if w <= 32:
+        slot, lane0 = rb // per_warp, (rb % per_warp) * w
+    else:
+        k = rb // rows_per_sub
+        slot, lane0 = k * warps + (rb - k * rows_per_sub) * warps_per_row, 0
+    first, end = 32 * t, min(32 * t + 32, c * w)
+    bit = first // w
+    j = (first - bit * w) >> 5
+    pieces, at, jj = 0, bit * w + 32 * j, j
+    while at < end:
+        at += min(32, w - 32 * jj)
+        jj = 0 if jj + 1 == warps_per_row else jj + 1
+        pieces += 1
+    return (slot + j) * 8 + bit, lane0, bit * w + 32 * j - first, j, pieces
+
+
+def _pack_task(plane, lane0, at, j, pieces):
+    return (plane & 0x3FF) | lane0 << 10 | (at + 32) << 15 | j << 21 | pieces << 24
+
+
+def _unpack_task(task):
+    return (task & 0x3FF, (task >> 10) & 0x1F, ((task >> 15) & 0x3F) - 32,
+            (task >> 21) & 7, (task >> 24) & 0x3F)
+
+
+def _brev32(x):
+    return int(f"{x:032b}"[::-1], 2)
+
+
+def _emulate_sax_pack(p, bps, c, nw, sms=2):
+    """``coconut_sax_pack`` and ``sax_pack_kernel`` on ``sms`` SMs, block by
+    block: the persistent blocks' walk over tiles with the planes in two
+    buffers, the thread -> (row, segment) map and the rows packed into
+    warps, the breakpoints staged breadth first and NaN-padded, the search
+    one step a level with each step's warp vote kept as a bit plane by lane
+    0, and the words built per thread from the packed plan of its words.
+    Entries the launch would not write stay -1."""
+    k_ = _summarize_constants()
+    threads, subtiles = k_["SAX_THREADS"], k_["SAX_SUBTILES"]
+    b, w = p.shape
+    warps, nodes = threads // 32, (1 << c) - 1
+    rows_per_sub = _sax_rows_per_sub(w, threads)
+    rows_per_block = subtiles * rows_per_sub
+    n_tiles = -(-b // rows_per_block)
+    grid = min(n_tiles, sms * k_["SAX_BLOCKS_PER_SM"])
+    per_warp = 32 // w if w <= 32 else 1
+    warps_per_row = 1 if w <= 32 else -(-w // 32)
+    tid = np.arange(threads)
+    lane, warp = tid % 32, tid // 32
+    if w <= 32:
+        q = lane // w
+        r, seg, mine = warp * per_warp + q, lane - q * w, q < per_warp
+    else:
+        r = warp // warps_per_row
+        seg = (warp - r * warps_per_row) * 32 + lane
+        mine = (r < rows_per_sub) & (seg < w)
+    sb = np.full(nodes, np.nan, np.float32)
+    for i in range(nodes):
+        level = (i + 1).bit_length() - 1
+        s = ((2 * (i + 1 - (1 << level)) + 1) << (c - 1 - level)) - 1
+        if s < bps.size:
+            sb[i] = bps[s]
+    tasks = [[_pack_task(*_sax_task(i, w, c, nw, rows_per_sub, warps))
+              if i < rows_per_block * nw else 0
+              for i in (t + m * threads for m in range(subtiles))] for t in range(threads)]
+    sym = np.full((b, w), -1, np.int64)
+    keys = np.full((b, nw), -1, np.int64)
+    for block in range(grid):
+        planes = np.full((2, subtiles * warps, 8), 0xDEADBEEF, np.int64)  # never read unwritten
+        for buf, tile in enumerate(range(block, n_tiles, grid)):
+            buf %= 2
+            row0 = tile * rows_per_block
+            for k in range(subtiles):
+                if row0 + k * rows_per_sub >= b:
+                    break
+                row = row0 + k * rows_per_sub + r
+                ok = mine & (row < b)
+                x = np.where(ok, p[np.where(ok, row, 0), np.where(ok, seg, 0)], np.nan)
+                node = np.zeros(threads, int)
+                for level in range(c):
+                    right = sb[node] <= x
+                    votes = (right.reshape(warps, 32) << np.arange(32)).sum(1)
+                    planes[buf, k * warps:(k + 1) * warps, level] = votes  # lane 0's store
+                    node = 2 * node + np.where(right, 2, 1)
+                sym[row[ok], seg[ok]] = node[ok] - nodes
+            n_out = min(rows_per_block, b - row0) * nw
+            flat = planes[buf].reshape(-1)
+            for t in range(threads):
+                for m in range(subtiles):
+                    if t + m * threads >= n_out:
+                        break
+                    plane, lane0, at, j, pieces = _unpack_task(tasks[t][m])
+                    word = 0
+                    for _ in range(pieces):
+                        width = min(32, w - 32 * j)
+                        bits = _brev32(int(flat[plane]) >> lane0) & ((0xFFFFFFFF << (32 - width))
+                                                                    & 0xFFFFFFFF)
+                        word |= bits >> at if at >= 0 else (bits << -at) & 0xFFFFFFFF
+                        at += width
+                        j += 1
+                        if j == warps_per_row:
+                            j, plane = 0, plane + 1 - 8 * (warps_per_row - 1)
+                        else:
+                            plane += 8
+                    keys.reshape(-1)[row0 * nw + t + m * threads] = word
+    return sym, keys
+
+
+def _planted_paa(rng, b, w, c):
+    """Normal PAA values with planted ones on the breakpoints (first, middle,
+    last), NaN, +inf, -inf and -0.0, at random places."""
+    p = rng.standard_normal((b, w)).astype(np.float32)
+    bps = psum.breakpoints(c)
+    planted = np.array([bps[0], bps[len(bps) // 2], bps[-1], np.nan, np.inf, -np.inf,
+                        -0.0], np.float32)
+    at = rng.choice(b * w, size=min(b * w, 3 * planted.size), replace=False)
+    p.reshape(-1)[at] = np.resize(planted, at.size)
+    return p
+
+
+@pytest.mark.parametrize("b", [1, 67, 300])
+@pytest.mark.parametrize("w,c", [(16, 8), (12, 6), (8, 1), (32, 8), (64, 4)])
+def test_sax_pack_emulation_matches_plain_and_pallas(w, c, b, rng):
+    """The kernel's layout, emulated on the CPU, gives the plain version's
+    and the Pallas kernel's symbols and key words bit for bit, planted
+    breakpoints, NaN and infinities included. 67 rows end in a warp that
+    holds part of its rows (w <= 16); 12 segments leave 8 lanes a warp
+    idle; 64 segments take two warps a row; 300 rows at w >= 16 make the
+    blocks walk several tiles, both plane buffers in turn."""
+    from repro.kernels.sax_pack_kernel import sax_pack_pallas
+
+    cfg = psum.SummarizationConfig(series_len=w * 4, n_segments=w, card_bits=c)
+    nw = cfg.key_words
+    p = _planted_paa(rng, b, w, c)
+    bps = psum.breakpoints(c)
+    sym, keys = _emulate_sax_pack(p, bps, c, nw)
+    psym, pkeys = ref.sax_pack_ref(_t(p), _t(bps), c, nw)
+    np.testing.assert_array_equal(sym, psym.numpy())
+    np.testing.assert_array_equal(keys, pkeys.numpy())
+    rsym, rkeys = sax_pack_pallas(jnp.asarray(p), jnp.asarray(bps), c, n_words=nw,
+                                  block_b=b, interpret=True)
+    np.testing.assert_array_equal(sym, np.asarray(rsym))
+    np.testing.assert_array_equal(keys, np.asarray(rkeys).astype(np.int64))
+    if b > 1:  # the planted values sit where they should
+        assert (sym[np.isnan(p)] == 0).all() and (sym[p == np.inf] == 2 ** c - 1).all()
+
+
+def test_sax_pack_plan_fits_every_width():
+    """Every (w, c) the summarization allows (w c <= 256 key bits, c <= 8)
+    fits the kernel's plan: the breakpoints one a thread, a tile's planes
+    and its words the threads' SAX_SUBTILES slots, and each word's plan the
+    bit fields it is packed into."""
+    k = _summarize_constants()
+    threads, subtiles, warps = k["SAX_THREADS"], k["SAX_SUBTILES"], k["SAX_THREADS"] // 32
+    assert threads > k["MAX_BREAKPOINTS"] == 2 ** 8 - 1
+    for c in range(1, 9):
+        for w in range(1, 32 * k["MAX_WORDS"] // c + 1):
+            nw = -(-w * c // 32)
+            rows_per_sub = _sax_rows_per_sub(w, threads)
+            assert rows_per_sub > 0 and nw <= k["MAX_WORDS"]
+            assert subtiles * rows_per_sub * nw <= subtiles * threads
+            for i in range(subtiles * rows_per_sub * nw):
+                plane, lane0, at, j, pieces = _sax_task(i, w, c, nw, rows_per_sub, warps)
+                assert 0 <= plane < subtiles * warps * 8 <= 1 << 10 and 0 <= lane0 < 32
+                assert -32 < at < 32 and 0 <= j < 8 and 0 < pieces < 64
+                assert _unpack_task(_pack_task(plane, lane0, at, j, pieces)) == (
+                    plane, lane0, at, j, pieces)
