@@ -77,6 +77,44 @@ Phases, each reported on lines of its own:
             library yardstick (used nowhere in the port) and the least time
             the card could take (its bound); paa and sax_pack also over the
             whole 1,024,000-series set (logged).
+12. gateway: run after the serve phases (once the repeating events' index
+            is freed) and before the timing phase. ``serve.py --gateway
+            --autotune`` (``serve_gateway``, as the command line runs it) at
+            full width, three times: BTP, 133 of the 200 ingest batches of
+            5,120 seismic series ingested and drained (async ingest, f32
+            arenas), the other 67 ingested in the background while
+            single-query clients arrive (Poisson) with the reference's
+            tenant mix (70% exact, 20% recall-targeted, 10% with
+            conflicting recall and latency targets, half of each windowed
+            over ingest batches 79-132); top rung 64, a 5 ms deadline, a
+            50 ms p99 SLO, k = 5; the first quarter of the clients, at most
+            128, are warm-up. The recommender, the autotuner and the
+            gateway all run, the engine on the card. The runs: overload
+            (2,048 clients at GATEWAY_RATE, which formed batches of 64 need),
+            steady (GATEWAY_STEADY_REQUESTS at GATEWAY_STEADY_RATE, a load
+            the gateway keeps up with) and traced (the overload with
+            GATEWAY_TRACED_REQUESTS clients, its measured requests under the
+            profiler: device busy share only). A probe observes each run
+            and changes nothing: launch counts are set to 0 when the
+            warm-up's reset returns and read after the last answer, split
+            between the clients' sub-batches and the tuner's shadow work.
+            Each run fails unless every request was answered and accounted,
+            no pass signature was new after the warm-up, every exact
+            windowed answer equals the f64 brute force over rows
+            [79 x 5,120, 133 x 5,120), every exact whole-history answer
+            equals the f64 brute force over the rows its pinned epoch held,
+            every approximate answer lies inside its window (the
+            whole-history ones among its epoch's rows), and every ticket,
+            read again after the gateway closed, still holds its answer (an
+            error of shadow work after a ticket resolved would replace it).
+            The overload run also fails unless formed batches reached the
+            top rung and an exact client sub-batch of 9 or more real
+            queries launched screen_select. Logged for each run: client
+            p50/p95/p99 and queue-wait p99 (the traced run's include the
+            profiler's cost), arrival and served rates, shed rate,
+            conflicts, batches and flushes, the batch histogram, the
+            tuner's counters and fitted profiles, the launches and the wall
+            time; for the traced run the device busy share.
 
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -188,6 +226,20 @@ ADS_SEGMENTS = 8
 ADS_BUILD_S = 90.0  # host build budget; inserts go in chunks of 2^18 series
 ADS_CHUNK = 1 << 18
 ADS_BATCHES = 4
+# gateway phase: top rung, offered loads (Poisson QPS), clients (the first
+# quarter, at most two top rungs, are warm-up), deadline and SLO. The
+# overload rate makes formed batches reach the top rung, so that the exact
+# sub-batches of a mixed batch hold 9 or more real queries (the engine's
+# batch floor); the steady rate is one the gateway keeps up with; the traced
+# run repeats the overload, shorter, under the profiler
+GATEWAY_RUNG = 64
+GATEWAY_RATE = 4000.0
+GATEWAY_REQUESTS = 2048
+GATEWAY_STEADY_RATE = 40.0
+GATEWAY_STEADY_REQUESTS = 512
+GATEWAY_TRACED_REQUESTS = 384
+GATEWAY_DEADLINE_MS = 5.0
+GATEWAY_SLO_MS = 50.0
 T_START = time.perf_counter()
 
 
@@ -895,6 +947,307 @@ def phase_repeats(torch, ops, engine, shapes):
     return launches, summary
 
 
+# ------------------------------------------------------------ the gateway
+@contextlib.contextmanager
+def probe_gateway(ops, traced=False):
+    """Observe the gateway for one run without changing what it does. When
+    the warm-up ends (``reset_slo_window`` returns: the reset waits until
+    the dispatcher has accounted the warm-up batches) the launch counts are
+    set to 0; from then on each engine call of a sub-batch
+    (``_query_group``, on the dispatcher thread) adds its launches to the
+    clients' or, inside ``_shadow_work``, to the tuner's shadow work, and
+    each client call is recorded with its tier, whether it is windowed, its
+    real queries (the padding repeats the first row) and its launches.
+    With ``traced`` the measured requests run under the profiler from the
+    reset until the gateway closes, which ``serve_gateway`` does once the
+    last ticket resolved (device busy share). Every pinned snapshot is kept
+    by epoch, and every ticket in submission order beside the time it was
+    submitted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.gateway import Gateway
+    from repro_torch.core.streaming import StreamingIndex
+
+    real = {n: getattr(Gateway, n) for n in
+            ("_query_group", "_shadow_work", "reset_slo_window", "submit",
+             "close")}
+    real_pin = StreamingIndex.pin
+    rec = {"measuring": False, "in_shadow": False, "tickets": [], "sent": [],
+           "snaps": {}, "client": collections.Counter(),
+           "shadow": collections.Counter(), "groups": [],
+           "busy": collections.Counter(), "traced_s": 0.0}
+
+    def query_group(self, tier, nb, Qg, kk, window, snap):
+        before = dict(ops.LAUNCHES)
+        try:
+            return real["_query_group"](self, tier, nb, Qg, kk, window, snap)
+        finally:
+            if rec["measuring"]:
+                delta = {k: c - before[k] for k, c in ops.LAUNCHES.items()
+                         if c != before[k]}
+                if rec["in_shadow"]:
+                    rec["shadow"].update(delta)
+                else:
+                    pad = (Qg[1:] == Qg[0]).all(axis=1)[::-1]
+                    n_pad = int(pad.argmin()) if not pad.all() else pad.size
+                    rec["client"].update(delta)
+                    rec["groups"].append((tier, window is not None,
+                                          Qg.shape[0] - n_pad, delta))
+
+    def shadow_work(self, *args):
+        rec["in_shadow"] = True
+        try:
+            return real["_shadow_work"](self, *args)
+        finally:
+            rec["in_shadow"] = False
+
+    def reset_slo_window(self, *args, **kwargs):
+        real["reset_slo_window"](self, *args, **kwargs)
+        ops.reset_launches()  # counts from 0 for the measured requests
+        rec["measuring"] = True
+        if traced:
+            rec["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+            rec["prof"].__enter__()
+            rec["t_traced"] = time.perf_counter()
+
+    def stop_trace():
+        prof = rec.pop("prof", None)
+        if prof is not None:
+            import torch
+
+            torch.cuda.synchronize()
+            rec["traced_s"] = time.perf_counter() - rec["t_traced"]
+            prof.__exit__(None, None, None)
+            rec["busy"] = device_times(prof)
+
+    def close(self, *args, **kwargs):
+        stop_trace()
+        return real["close"](self, *args, **kwargs)
+
+    def submit(self, q, **kw):
+        t0 = time.perf_counter()
+        t = real["submit"](self, q, **kw)
+        rec["tickets"].append(t)
+        rec["sent"].append(t0)
+        return t
+
+    @contextlib.contextmanager
+    def pin(self):
+        with real_pin(self) as snap:
+            rec["snaps"][snap.epoch] = snap
+            yield snap
+
+    for n, fn in (("_query_group", query_group), ("_shadow_work", shadow_work),
+                  ("reset_slo_window", reset_slo_window), ("submit", submit),
+                  ("close", close)):
+        setattr(Gateway, n, fn)
+    StreamingIndex.pin = pin
+    try:
+        yield rec
+    finally:
+        stop_trace()
+        for n, fn in real.items():
+            setattr(Gateway, n, fn)
+        StreamingIndex.pin = real_pin
+
+
+def epoch_ids(snap):
+    """The ids an epoch held: its runs' and its unflushed chunks'."""
+    import numpy as np
+
+    parts = [r.ids for _, runs in snap.levels for r in runs]
+    parts += [c.ids for c in snap.flushing + snap.buffer]
+    return np.sort(np.concatenate(parts).astype(np.int64))
+
+
+def check_gateway_answers(torch, out, snaps):
+    """Gates (c)-(e): exact windowed answers against the f64 brute force
+    over the window's rows; exact whole-history answers against the f64
+    brute force over the rows their pinned epoch held; approximate answers
+    inside their window (whole-history ones among their epoch's rows).
+    Returns the counts checked."""
+    import numpy as np
+
+    idx, Q = out["index"], out["queries"]
+    X = torch.from_numpy(idx.raw.scan()).to(DEVICE)
+    pre = max(1, (2 * BATCHES) // 3)
+    lo, hi = (pre - WINDOW) * BATCH_SIZE, pre * BATCH_SIZE
+    groups = collections.defaultdict(list)  # (kind, epoch) -> request numbers
+    for i, (kw, r) in enumerate(zip(out["requests"], out["responses"])):
+        windowed = "window" in kw
+        if windowed and kw["window"] != (pre - WINDOW, pre - 1):
+            fail(f"gateway: request {i} asked window {kw['window']}")
+        if r.tier_served == "exact":
+            groups[("window", 0) if windowed else ("history", r.epoch)].append(i)
+        elif windowed:
+            if bool(((r.ids < lo) | (r.ids >= hi)).any()):
+                fail(f"gateway: approximate answer {i} lies outside its window")
+            groups[("approx window", 0)].append(i)
+        else:
+            groups[("approx", r.epoch)].append(i)
+    counts = collections.Counter()
+    for (kind, epoch), reqs in sorted(groups.items()):
+        counts[kind] += len(reqs)
+        if kind == "approx window":
+            continue
+        if kind == "window":
+            rows, base = X[lo:hi], lo
+        else:
+            if epoch not in snaps:
+                fail(f"gateway: no pinned snapshot of epoch {epoch}")
+            held = epoch_ids(snaps[epoch])
+            if not np.array_equal(held, np.arange(held.size)):
+                fail(f"gateway: epoch {epoch} does not hold a prefix of the ids")
+            rows, base = X[: held.size], 0
+        for j in range(0, len(reqs), GATEWAY_RUNG):
+            part = reqs[j:j + GATEWAY_RUNG]
+            got = torch.from_numpy(np.stack([out["responses"][i].ids
+                                             for i in part])).to(DEVICE) - base
+            if kind == "approx":
+                if bool(((got < 0) | (got >= rows.shape[0])).any()):
+                    fail(f"gateway: an approximate answer of epoch {epoch} "
+                         "lies outside the rows it held")
+            else:
+                check_exact(torch, rows, Q[part], got,
+                            f"gateway {kind} exact, epoch {epoch}")
+    del X
+    return dict(counts)
+
+
+def gateway_run(torch, ops, serve, name, rate, requests, traced=False):
+    """One ``serve.py --gateway --autotune`` run at full width, ``rate`` QPS
+    offered and ``requests`` clients (docstring phase 12), gated on (b)-(f).
+    Returns the measured requests' launches (clients' and shadow work's)
+    and the summary."""
+    import numpy as np
+
+    argv = ["--gateway", "--autotune", "--scheme", "BTP",
+            "--batches", str(BATCHES), "--batch-size", str(BATCH_SIZE),
+            "--series-len", str(SERIES_LEN), "--query-batch", str(GATEWAY_RUNG),
+            "--window", str(WINDOW), "--k", str(K),
+            "--arrival-rate", str(rate),
+            "--deadline-ms", str(GATEWAY_DEADLINE_MS),
+            "--slo-p99-ms", str(GATEWAY_SLO_MS),
+            "--requests", str(requests), "--screen-dtype", "f32",
+            "--device", DEVICE]
+    args = serve.build_parser().parse_args(argv)
+    what = f"gateway {name}"
+    log(f"{what}: python -m repro_torch.launch.serve {' '.join(argv)}")
+    t0 = time.perf_counter()
+    with probe_gateway(ops, traced=traced) as rec:
+        out = serve.serve_gateway(args)
+    wall = time.perf_counter() - t0
+    # (f): every ticket read again after the gateway closed
+    if len(rec["tickets"]) != requests:
+        fail(f"{what}: {len(rec['tickets'])} tickets for {requests} requests")
+    for i, (t, r) in enumerate(zip(rec["tickets"], out["responses"])):
+        if t.result(timeout=0) is not r:
+            fail(f"{what}: ticket {i} changed after it resolved")
+    st = out["stats"]  # read after the dispatcher stopped
+    if len(out["responses"]) != requests or st["served"] != requests or \
+            out["index"].raw.n != BATCHES * BATCH_SIZE:
+        fail(f"{what}: answered {len(out['responses'])}, accounted "
+             f"{st['served']}, ingested {out['index'].raw.n}")
+    if out["retraces"] != 0:  # (b)
+        fail(f"{what}: {out['retraces']} new pass signatures after the warm-up")
+    checked = check_gateway_answers(torch, out, rec["snaps"])  # (c)-(e)
+    warm = out["warmup"]
+    lat, waits = out["latency_ms"], out["queue_wait_ms"]
+    sent = np.array(rec["sent"][warm:])
+    done = sent + lat / 1e3  # each answer's time: its submission + latency
+    big = [g for g in rec["groups"] if g[0] == "exact" and g[2] >= 9]
+    sizes = collections.defaultdict(list)
+    for tier, windowed, n, _ in rec["groups"]:
+        sizes[f"{tier} {'window' if windowed else 'history'}"].append(n)
+    busy, traced_s = rec["busy"], rec["traced_s"]
+    tuner = out["tuner"]
+    summary = {
+        "offered_qps": rate, "requests": requests, "warmup": warm,
+        "measured": int(lat.size),
+        "arrival_qps": float((lat.size - 1) / max(sent[-1] - sent[0], 1e-9)),
+        "served_qps": float(lat.size / max(done.max() - sent[0], 1e-9)),
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p95_ms": float(np.percentile(lat, 95)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "queue_wait_p99_ms": float(np.percentile(waits, 99)),
+        "shed_rate": out["shed_rate"], "conflicts": st["conflicts"],
+        "batches": st["batches"], "deadline_flushes": st["deadline_flushes"],
+        "full_flushes": st["full_flushes"],
+        "shed_transitions": st["shed_transitions"],
+        "batch_hist": {str(k): v for k, v in sorted(st["batch_hist"].items())},
+        "tuner": {k: tuner[k] for k in ("decisions", "explores", "observations",
+                                        "probes", "epoch_refits")},
+        "client_launches": dict(rec["client"]),
+        "shadow_launches": dict(rec["shadow"]),
+        "exact_sub_batches_of_9_or_more": len(big),
+        "their_screen_select_launches": sum(
+            g[3].get("screen_select", 0) for g in big),
+        "client_sub_batch_real_queries": {k: sorted(v) for k, v in sizes.items()},
+        "checked": checked, "retraces": out["retraces"],
+        "epochs_pinned": len(rec["snaps"]), "traced": traced,
+        "seconds": wall,
+    }
+    if traced:
+        summary.update({
+            "traced_seconds": traced_s,
+            "device_busy_seconds": sum(busy.values()) / 1e6,
+            "busy_share": sum(busy.values()) / 1e6 / max(traced_s, 1e-9),
+            "h2d_ms": sum(us for k, us in busy.items() if "HtoD" in k) / 1e3,
+            "screen_dense_kernel_ms": sum(
+                us for k, us in busy.items() if "screen_dense_kernel" in k) / 1e3})
+        top = ", ".join(f"{k[:48]} {us / 1e3:.1f} ms"
+                        for k, us in busy.most_common(4))
+        log(f"{what}: traced from the reset to the last answer: device busy "
+            f"{summary['device_busy_seconds']:.4f}s of {traced_s:.4f}s (share "
+            f"{summary['busy_share']:.4f}); most device time: {top}")
+    log(f"{what}: {wall:.1f}s; p50/p95/p99 {summary['p50_ms']:.2f} / "
+        f"{summary['p95_ms']:.2f} / {summary['p99_ms']:.2f} ms, queue-wait p99 "
+        f"{summary['queue_wait_p99_ms']:.2f} ms over {lat.size} measured requests "
+        f"at {rate:.0f} QPS offered ({summary['arrival_qps']:.1f} arrived, "
+        f"{summary['served_qps']:.1f} served){' under the profiler' if traced else ''}"
+        f"; shed rate {out['shed_rate']:.4f}")
+    for label, arms in tuner["profiles"].items():
+        log(f"{what}: tuner profile {label}: {json.dumps(arms)}")
+    for key, v in summary.items():
+        log(f"{what}: {key}: {v}")
+    launches = collections.Counter(rec["client"])
+    launches.update(rec["shadow"])
+    del out, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_gateway(torch, ops, serve):
+    """Single-query clients through ``serve.py --gateway --autotune`` on the
+    card in three runs (docstring phase 12). Returns the measured requests'
+    launches of all three and their summaries."""
+    t0 = time.perf_counter()
+    launches, summary = collections.Counter(), {}
+    got, summary["overload"] = gateway_run(
+        torch, ops, serve, "overload", GATEWAY_RATE, GATEWAY_REQUESTS)
+    launches.update(got)
+    if summary["overload"]["full_flushes"] == 0:
+        fail("gateway overload: no formed batch reached the top rung")
+    if summary["overload"]["their_screen_select_launches"] == 0:  # (a)
+        fail("gateway overload: no exact client sub-batch of 9 or more queries "
+             f"launched screen_select (client launches "
+             f"{summary['overload']['client_launches']}, "
+             f"{summary['overload']['exact_sub_batches_of_9_or_more']} such "
+             "sub-batches)")
+    got, summary["steady"] = gateway_run(
+        torch, ops, serve, "steady", GATEWAY_STEADY_RATE, GATEWAY_STEADY_REQUESTS)
+    launches.update(got)
+    got, summary["traced"] = gateway_run(
+        torch, ops, serve, "traced", GATEWAY_RATE, GATEWAY_TRACED_REQUESTS,
+        traced=True)
+    launches.update(got)
+    summary["seconds"] = time.perf_counter() - t0
+    log(f"gateway: three runs in {summary['seconds']:.1f}s")
+    return launches, summary
+
+
 # ------------------------------------------------- the kernel backend's path
 @contextlib.contextmanager
 def record_shapes(ops, shapes):
@@ -1565,6 +1918,8 @@ def main() -> int:
             torch, ops, serve, engine, tier, dtype, shapes)
         launches.update(got)
     got, summary["exact-int8-repeats"] = phase_repeats(torch, ops, engine, shapes)
+    launches.update(got)
+    got, summary["gateway"] = phase_gateway(torch, ops, serve)
     launches.update(got)
     for key, c in shapes.most_common(16):
         log(f"main path: call {key} x{c}")

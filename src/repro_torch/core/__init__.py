@@ -23,6 +23,15 @@ from .clsm import CLSM, CLSMConfig
 from .ingest import IngestPipeline
 from .streaming import StreamConfig, StreamingIndex, resolve_backend
 from .adsplus import ADSConfig, ADSIndex
+from .recommender import (
+    RationaleEntry, Scenario, Recommendation, TierDecision, recommend,
+    serving_tier,
+)
+from .autotune import (
+    AutoTuner, AutoTunerConfig, DecisionRecord, Knobs, WorkloadKey,
+    knob_grid, workload_key,
+)
+from .gateway import Gateway, GatewayConfig, GatewayStats, Response, Ticket
 
 __all__ = [
     "SummarizationConfig", "breakpoints", "paa", "sax", "sax_from_paa",
@@ -39,4 +48,9 @@ __all__ = [
     "CLSM", "CLSMConfig", "StreamConfig", "StreamingIndex",
     "BufferChunk", "RunRegistry", "RunSet", "IngestPipeline",
     "resolve_backend", "ADSConfig", "ADSIndex",
+    "Scenario", "Recommendation", "TierDecision",
+    "RationaleEntry", "recommend", "serving_tier",
+    "AutoTuner", "AutoTunerConfig", "DecisionRecord", "Knobs",
+    "WorkloadKey", "knob_grid", "workload_key",
+    "Gateway", "GatewayConfig", "GatewayStats", "Response", "Ticket",
 ]

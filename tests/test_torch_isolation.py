@@ -24,7 +24,8 @@ def _modules():
 def test_importing_every_module_loads_neither_jax_nor_repro():
     names = _modules()
     for name in ("core.verify_engine", "core.adsplus", "kernels.ops",
-                 "kernels.ref", "kernels._build", "launch.serve"):
+                 "kernels.ref", "kernels._build", "launch.serve",
+                 "core.recommender", "core.autotune", "core.gateway"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -76,8 +77,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert StreamConfig().device == "cuda"
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve.main(["--batches", "1"])
+    for argv in (["--batches", "1"], ["--gateway", "--batches", "1"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(argv)
     # asked for explicitly, the CPU runs the plain versions
     assert VerifyEngine(device="cpu").device.type == "cpu"
     assert StreamingIndex(StreamConfig(device="cpu")).raw.device.type == "cpu"

@@ -8,10 +8,13 @@ is recorded too). Async ingest is compared in the exact tier only. There each
 exact window query first drains the ingest backlog, in both packages, so
 both loops query the same published runs and log the same modeled I/O:
 without the drain, what a query reads depends on how far the background
-worker has got, which neither package makes deterministic. Flags that are
-not ported yet are refused at parse time.
+worker has got, which neither package makes deterministic. The gateway
+loop (``--gateway``) keeps the reference's flags and defaults and runs at a
+tiny size on the CPU. Flags that are not ported yet are refused at parse
+time.
 """
 import argparse
+import sys
 
 import numpy as np
 import pytest
@@ -90,22 +93,95 @@ def test_serve_coconut_serves_the_reference_ids(tier, ingest, dtype,
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--mode", "lm"], "--mode lm"), (["--gateway"], "--gateway"),
-    (["--shard", "mesh"], "--shard mesh")])
+    (["--mode", "lm"], "--mode lm"), (["--shard", "mesh"], "--shard mesh"),
+    (["--gateway", "--shard", "mesh"], "--shard mesh")])
 def test_unported_flags_are_refused_at_parse_time(argv, what, monkeypatch,
                                                   capsys):
-    monkeypatch.setattr(pserve, "serve_coconut",
-                        lambda args: pytest.fail("served an unported mode"))
+    for loop in ("serve_coconut", "serve_gateway"):
+        monkeypatch.setattr(pserve, loop,
+                            lambda args: pytest.fail("served an unported mode"))
     with pytest.raises(SystemExit):
         pserve.main(["--device", "cpu", *argv])
     assert what in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,loop", [
+    (["--gateway"], "serve_gateway"), (["--gateway", "--autotune"],
+                                       "serve_gateway"),
+    ([], "serve_coconut")])
+def test_gateway_flag_selects_the_gateway_loop(argv, loop, monkeypatch):
+    ran = []
+    for name in ("serve_coconut", "serve_gateway"):
+        monkeypatch.setattr(pserve, name,
+                            lambda args, _n=name: ran.append((_n, args)))
+    pserve.main(["--device", "cpu", *argv])
+    assert [n for n, _ in ran] == [loop]
+    assert ran[0][1].autotune == ("--autotune" in argv)
+
+
+GATEWAY_FLAGS = ("gateway", "arrival_rate", "deadline_ms", "slo_p99_ms",
+                 "requests", "autotune")
+
+
+def test_gateway_flags_have_the_reference_defaults(monkeypatch):
+    """The reference's parser lives inside its ``main``: run it with
+    ``--gateway`` and its loop replaced, and read the defaults it parsed."""
+    seen = []
+    monkeypatch.setattr(rserve, "serve_gateway", seen.append)
+    monkeypatch.setattr(sys, "argv", ["serve", "--gateway"])
+    rserve.main()
+    ref = seen[0]
+    got = pserve.build_parser().parse_args(["--gateway"])
+    for flag in GATEWAY_FLAGS + ("query_batch", "window", "k", "batches",
+                                 "batch_size", "series_len", "scheme",
+                                 "prewarm", "screen_dtype"):
+        assert getattr(got, flag) == getattr(ref, flag), flag
+    assert (got.arrival_rate, got.deadline_ms, got.slo_p99_ms,
+            got.requests, got.autotune) == (500.0, 5.0, 50.0, 400, False)
+
+
+def test_serve_gateway_tiny_run_on_the_cpu(capsys):
+    """--gateway --autotune --device cpu at a tiny size: every request
+    answered, the summary printed, zero retraces after the warm-up, and
+    every exact windowed answer (its window was drained before serving)
+    equal to the direct call."""
+    args = pserve.build_parser().parse_args([
+        "--gateway", "--autotune", "--device", "cpu", "--batches", "10",
+        "--batch-size", "500", "--series-len", "64", "--requests", "64"])
+    out = pserve.serve_gateway(args)
+    resps, reqs, idx = out["responses"], out["requests"], out["index"]
+    assert len(resps) == len(reqs) == 64 and out["warmup"] == 16
+    assert out["latency_ms"].shape == out["queue_wait_ms"].shape == (48,)
+    assert out["retraces"] == 0
+    st = out["stats"]  # read after the dispatcher stopped: every batch
+    assert st["submitted"] == st["served"] == 64 and st["autotune"]
+    assert sum(s * c for s, c in st["batch_hist"].items()) == 64
+    assert st["tuner_decisions"] > 0 and out["tuner"]["profiles"]
+    assert idx.raw.n == 10 * 500
+    pre = (2 * 10) // 3
+    for q, kw, r in zip(out["queries"], reqs, resps):
+        assert r.ids.shape == (5,) and (np.diff(r.vals) >= 0).all()
+        win = kw.get("window")
+        if win is not None:
+            assert win == (pre - 5, pre - 1)
+            lo, hi = win[0] * 500, (win[1] + 1) * 500
+            assert ((r.ids >= lo) & (r.ids < hi)).all()
+            if r.tier_served == "exact":
+                vals, ids, _ = idx.window_knn_batch(q[None], *win, k=5)
+                np.testing.assert_array_equal(r.ids, ids[0])
+                np.testing.assert_array_equal(r.vals, vals[0])
+    text = capsys.readouterr().out
+    for tag in ("[gateway] prewarmed", "[gateway] 48 measured requests",
+                "[gateway] shed_rate=", "[gateway] post-warm-up retraces=0",
+                "[autotune] profile", "[autotune] [advise/"):
+        assert tag in text, tag
 
 
 def test_parser_keeps_the_reference_flags():
     args = pserve.build_parser().parse_args([])
     for flag in ("scheme", "batches", "batch_size", "series_len",
                  "query_batch", "window", "k", "tier", "n_blocks", "ingest",
-                 "screen_dtype", "prewarm"):
+                 "screen_dtype", "prewarm") + GATEWAY_FLAGS:
         assert hasattr(args, flag)
     assert args.device == "cuda"  # the card unless the caller asks otherwise
 
