@@ -115,6 +115,25 @@ Phases, each reported on lines of its own:
             conflicts, batches and flushes, the batch histogram, the
             tuner's counters and fitted profiles, the launches and the wall
             time; for the traced run the device busy share.
+13. file storage: run after the gateway and before the timing phase, once
+            the exact f32 phase's index is freed. ``serve.py --storage file
+            --storage-dir DIR`` (``serve_coconut``, as the command line runs
+            it) with the exact f32 phase's flags and seeds, DIR a fresh
+            temporary directory that must have 4 GiB free (removed at the
+            end): a 1,048,576,000-byte raw file, the runs' files, one
+            fsync'd WAL record per ingest batch, rotated at each flush. Fails
+            unless every served batch's ids and f32 d2 equal, bit for bit,
+            what the exact f32 phase served (so every answer is the f64 brute
+            force), screen_select launched in the served calls (probed as in
+            phase 4) and the host fallbacks stay under that phase's limit.
+            Then the index is closed and dropped, and
+            ``StreamingIndex.recover`` reopens DIR on the card: it must hold
+            1,024,000 rows, and the last served (query batch, window) pair,
+            asked again under ``backend="device"`` and ``"kernel"``, must
+            return the served ids, launching screen_select and topk_ed.
+            Logged: p50/p95 ms/query beside the exact f32 phase's, the
+            measured I/O (raw, run and WAL bytes, manifest commits,
+            readahead spans), the recovery time and the phase's wall time.
 
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -163,7 +182,8 @@ FALLBACK_LIMIT = {("exact", "f32"): 0.01, ("exact", "int8"): 0.999,
                   ("approx", "f32"): 0.01, "repeats": 0.6}
 REPEATS = 5  # recordings of each repeating source (= k of its queries)
 REPEAT_NOISE = 0.005
-ENGINE_COUNTERS = ("calls", "screened", "fallbacks", "arena_bytes")
+ENGINE_COUNTERS = ("calls", "screened", "fallbacks", "arena_bytes", "h2d_bytes",
+                   "uploads")
 
 # kernel-phase shapes
 TABLE_ROWS = 1 << 20
@@ -240,6 +260,9 @@ GATEWAY_STEADY_REQUESTS = 512
 GATEWAY_TRACED_REQUESTS = 384
 GATEWAY_DEADLINE_MS = 5.0
 GATEWAY_SLO_MS = 50.0
+# file storage phase: free space its directory must have (1 GiB of raw rows,
+# the runs' files and a merge's old and new files side by side, with room)
+STORE_FREE_BYTES = 4 << 30
 T_START = time.perf_counter()
 
 
@@ -756,7 +779,8 @@ def probe_tier(torch, ops, engine, method, shapes):
     kernels = {n: getattr(ops, n) for n in ("screen_select", "screen_select_quant")}
     rec = {"n": 0, "traced": [], "launches": collections.Counter(),
            "traced_launches": collections.Counter(), "engine": collections.Counter(),
-           "busy": collections.Counter(), "traced_s": 0.0}
+           "traced_engine": collections.Counter(), "busy": collections.Counter(),
+           "traced_s": 0.0}
 
     def recorder(fname):
         def wrapped(q, x, *args, rows=None):
@@ -793,8 +817,10 @@ def probe_tier(torch, ops, engine, method, shapes):
                 rec["busy"].update(device_times(prof))
                 rec["traced_launches"].update(launches)
             rec["launches"].update(launches)
-            rec["engine"].update({k: engine.stats[k] - before[k]
-                                  for k in ENGINE_COUNTERS})
+            delta = {k: engine.stats[k] - before[k] for k in ENGINE_COUNTERS}
+            rec["engine"].update(delta)
+            if traced:
+                rec["traced_engine"].update(delta)
 
     setattr(StreamingIndex, method, probed)
     try:
@@ -817,9 +843,13 @@ def report_phase(name, rec, lat, kernel, fallback_limit, wall):
     top = ", ".join(f"{k[:48]} {us / 1e3:.1f} ms" for k, us in rec["busy"].most_common(4))
     share = es["fallbacks"] / max(1, es["screened"])
     p50, p95 = float(percentile(bare, 50)), float(percentile(bare, 95))
+    h2d_ms = sum(us for k, us in rec["busy"].items() if "HtoD" in k) / 1e3
+    te = rec["traced_engine"]
     log(f"{name}: traced {len(rec['traced'])} of {rec['n']} served batches: device "
         f"busy {busy_s:.4f}s of {rec['traced_s']:.4f}s answering them "
-        f"({busy_s / max(rec['traced_s'], 1e-9):.4f}); most device time: {top}")
+        f"({busy_s / max(rec['traced_s'], 1e-9):.4f}); most device time: {top}; "
+        f"H2D {h2d_ms:.2f} ms for the engine's {te['h2d_bytes']} bytes "
+        f"({te['uploads']} arena builds or extends)")
     log(f"{name}: {wall:.1f}s, tier launches {launches}, calls={es['calls']}, "
         f"screened={es['screened']}, fallbacks={es['fallbacks']} (share "
         f"{share:.4f}, limit {fallback_limit}), arena_bytes={es['arena_bytes']}, "
@@ -842,6 +872,8 @@ def report_phase(name, rec, lat, kernel, fallback_limit, wall):
                       "untraced_batches": len(bare), "calls": es["calls"],
                       "screened": es["screened"], "fallbacks": es["fallbacks"],
                       "fallback_share": share, "arena_bytes": es["arena_bytes"],
+                      "h2d_bytes": es["h2d_bytes"], "uploads": es["uploads"],
+                      "traced_h2d_ms": h2d_ms, "traced_h2d_bytes": te["h2d_bytes"],
                       "seconds": wall, "traced_seconds": rec["traced_s"],
                       "device_busy_seconds": busy_s}
 
@@ -851,7 +883,7 @@ def phase_serve(torch, ops, serve, engine, tier, dtype, shapes, keep=False):
             "--batch-size", str(BATCH_SIZE), "--series-len", str(SERIES_LEN),
             "--query-batch", str(QUERY_BATCH), "--window", str(WINDOW),
             "--k", str(K), "--tier", tier, "--n-blocks", str(N_BLOCKS),
-            "--screen-dtype", dtype, "--device", DEVICE]
+            "--screen-dtype", dtype, "--storage", "model", "--device", DEVICE]
     args = serve.build_parser().parse_args(argv)
     name = f"serve {tier} {dtype}"
     log(f"{name}: python -m repro_torch.launch.serve {' '.join(argv)}")
@@ -869,7 +901,7 @@ def phase_serve(torch, ops, serve, engine, tier, dtype, shapes, keep=False):
     if idx.raw.n != BATCHES * BATCH_SIZE:
         fail(f"{name}: ingested {idx.raw.n} series")
     X = torch.from_numpy(idx.raw.scan()).to(DEVICE)
-    for b, t0b, t1b, qs, ids in out["served"]:
+    for b, t0b, t1b, qs, ids, _ in out["served"]:
         lo, hi = t0b * BATCH_SIZE, (t1b + 1) * BATCH_SIZE
         got = torch.from_numpy(ids).to(DEVICE)
         if tier == "exact":
@@ -944,6 +976,95 @@ def phase_repeats(torch, ops, engine, shapes):
     del idx, X, bases
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, summary
+
+
+# ---------------------------------------------------------- file storage
+def phase_file_storage(torch, ops, serve, engine, shapes, model_served):
+    """The exact f32 phase again on the file backend (docstring phase 13):
+    served answers bitwise the model backend's, then recovery on the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import StreamingIndex
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="coconut-smoke-store-")
+    try:
+        free = shutil.disk_usage(root).free
+        log(f"file storage: {root}, {free} bytes free (need {STORE_FREE_BYTES})")
+        if free < STORE_FREE_BYTES:
+            fail(f"file storage: {root} has {free} bytes free, under {STORE_FREE_BYTES}")
+        argv = ["--scheme", "BTP", "--batches", str(BATCHES),
+                "--batch-size", str(BATCH_SIZE), "--series-len", str(SERIES_LEN),
+                "--query-batch", str(QUERY_BATCH), "--window", str(WINDOW),
+                "--k", str(K), "--n-blocks", str(N_BLOCKS), "--screen-dtype", "f32",
+                "--storage", "file", "--storage-dir", root, "--device", DEVICE]
+        name = "serve exact f32 file storage"
+        log(f"{name}: python -m repro_torch.launch.serve {' '.join(argv)}")
+        args = serve.build_parser().parse_args(argv)
+        t0 = time.perf_counter()
+        with probe_tier(torch, ops, engine, "window_knn_batch", shapes) as rec:
+            out = serve.serve_coconut(args)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lat = [float(v) for v in out["latency_ms"]]
+        launches, summary = report_phase(name, rec, lat, "screen_select",
+                                         FALLBACK_LIMIT[("exact", "f32")], wall)
+        if len(out["served"]) != len(model_served):
+            fail(f"{name}: served {len(out['served'])} batches, the model backend "
+                 f"{len(model_served)}")
+        for (b, t0b, t1b, _, ids, d2), want in zip(out["served"], model_served):
+            if (b, t0b, t1b) != want[:3] or not (
+                    np.array_equal(ids, want[3])
+                    and np.array_equal(d2.view(np.uint32), want[4].view(np.uint32))):
+                fail(f"{name} batch {b + 1}: ids or f32 d2 differ from the model "
+                     "backend's")
+        m = out["measured_io"]
+        log(f"{name}: {len(model_served)} served batches bitwise the model "
+            f"backend's; measured io {json.dumps(m)}")
+        summary["measured_io"] = m
+        _, t0b, t1b, qs, served_ids, _ = out["served"][-1]
+        idx = out["index"]
+        cfg = idx.cfg
+        idx.close()
+        del out, idx, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr = time.perf_counter()
+        idx = StreamingIndex.recover(cfg, root)
+        summary["recover_seconds"] = time.perf_counter() - tr
+        if idx.raw.n != BATCHES * BATCH_SIZE:
+            fail(f"{name}: the recovered raw store holds {idx.raw.n} rows")
+        log(f"{name}: recovered {idx.raw.n} rows, {idx.n_partitions} runs, "
+            f"in {summary['recover_seconds']:.3f}s")
+        for backend, kernel in (("device", "screen_select"), ("kernel", "topk_ed")):
+            ops.reset_launches()
+            tq = time.perf_counter()
+            _, ids, _ = idx.window_knn_batch(qs, t0b, t1b, k=K, backend=backend)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - tq) * 1e3
+            got = dict(ops.LAUNCHES)
+            launches[kernel] = launches.get(kernel, 0) + got[kernel]
+            log(f"{name}: recovered index, backend={backend}: {ms:.1f} ms for "
+                f"the last served batch, launches {got}")
+            if got[kernel] == 0:
+                fail(f"{name}: the recovered index never launched {kernel} "
+                     f"under backend={backend!r}")
+            if not np.array_equal(ids, served_ids):
+                fail(f"{name}: the recovered index answers the last served batch "
+                     f"otherwise under backend={backend!r}")
+            summary[f"recovered_{backend}_ms"] = ms
+        idx.close()
+        del idx
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"{name}: phase {summary['phase_seconds']:.1f}s (serving {wall:.1f}s)")
     return launches, summary
 
 
@@ -1418,7 +1539,7 @@ def phase_kernel_backend(torch, ops, kept, shapes):
     key_differ = 0
     t0 = time.perf_counter()
     for t, j in enumerate(pick):
-        b, t0b, t1b, qs, ids = served[j]
+        b, t0b, t1b, qs, ids, _ = served[j]
         lo, hi = t0b * BATCH_SIZE, (t1b + 1) * BATCH_SIZE
         what = f"kernel backend batch {b + 1}"
         traced = t % TRACE_EVERY == TRACE_EVERY - 1
@@ -1558,7 +1679,7 @@ def phase_long_slates(torch, ops, kept):
     (counts set to 0 just before each call and read just after it)."""
     out, X = kept
     idx = out["index"]
-    b, t0b, t1b, qs, _ = out["served"][-1]
+    b, t0b, t1b, qs, _, _ = out["served"][-1]
     lo, hi = t0b * BATCH_SIZE, (t1b + 1) * BATCH_SIZE
     summary, launches = {}, collections.Counter()
     for backend, need in (("device", "screen_select"), ("kernel", "topk_ed")):
@@ -1910,6 +2031,8 @@ def main() -> int:
     got, summary["adsplus"] = phase_adsplus(torch, ops, X_host, X, out["served"],
                                             shapes)
     launches.update({n: c for n, c in got.items() if n == "topk_ed"})
+    # what the exact f32 phase served, for the file storage phase
+    model_served = [(b, t0b, t1b, ids, d2) for b, t0b, t1b, _, ids, d2 in out["served"]]
     del out, X, X_host, kept
     gc.collect()
     torch.cuda.empty_cache()
@@ -1921,6 +2044,15 @@ def main() -> int:
     launches.update(got)
     got, summary["gateway"] = phase_gateway(torch, ops, serve)
     launches.update(got)
+    got, summary["exact-f32-file"] = phase_file_storage(torch, ops, serve, engine,
+                                                        shapes, model_served)
+    launches.update(got)
+    del model_served
+    log("file storage: ms/query p50/p95 {:.4f}/{:.4f} against the model backend's "
+        "{:.4f}/{:.4f}".format(summary["exact-f32-file"]["p50_ms_per_query"],
+                               summary["exact-f32-file"]["p95_ms_per_query"],
+                               summary["exact-f32"]["p50_ms_per_query"],
+                               summary["exact-f32"]["p95_ms_per_query"]))
     for key, c in shapes.most_common(16):
         log(f"main path: call {key} x{c}")
     entries = phase_timing(torch, ops, ref, shapes, worst) + history_entries

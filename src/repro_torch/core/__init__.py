@@ -21,7 +21,10 @@ from .ctree import CTree, CTreeConfig, RawStore, SortedRun
 from .run_registry import BufferChunk, RunRegistry, RunSet
 from .clsm import CLSM, CLSMConfig
 from .ingest import IngestPipeline
-from .streaming import StreamConfig, StreamingIndex, resolve_backend
+from .storage import (
+    FileStore, SimulatedCrash, StorageEngine, WriteAheadLog, resolve_backend,
+)
+from .streaming import StreamConfig, StreamingIndex
 from .adsplus import ADSConfig, ADSIndex
 from .recommender import (
     RationaleEntry, Scenario, Recommendation, TierDecision, recommend,
@@ -47,6 +50,7 @@ __all__ = [
     "empty_topk_state", "merge_topk_state", "recall_at_k",
     "CLSM", "CLSMConfig", "StreamConfig", "StreamingIndex",
     "BufferChunk", "RunRegistry", "RunSet", "IngestPipeline",
+    "FileStore", "SimulatedCrash", "StorageEngine", "WriteAheadLog",
     "resolve_backend", "ADSConfig", "ADSIndex",
     "Scenario", "Recommendation", "TierDecision",
     "RationaleEntry", "recommend", "serving_tier",

@@ -56,10 +56,15 @@ class CLSMConfig:
 
 
 class CLSM:
-    def __init__(self, cfg: CLSMConfig, disk: Optional[DiskModel] = None):
+    def __init__(self, cfg: CLSMConfig, disk: Optional[DiskModel] = None,
+                 storage=None):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.disk = disk or DiskModel()
+        # optional crash-consistent file backend
+        # (:class:`repro_torch.core.storage.backend.StorageEngine`): WAL-first
+        # ingest publication, persisted runs, manifest commits
+        self.storage = storage
         self.registry = RunRegistry()
         self.n_flushes = 0
         self.n_merges = 0
@@ -78,7 +83,12 @@ class CLSM:
 
     # ---------------------------------------------------------------- ingest
     def append_chunk(self, chunk: BufferChunk) -> RunSet:
-        """Publish one ingest batch into the buffer (query-visible at once)."""
+        """Publish one ingest batch into the buffer — WAL-first when a
+        storage engine is attached: the chunk is durable (fsync'd WAL
+        record) *before* it becomes query-visible, so an acknowledged batch
+        survives a crash at any later point."""
+        if self.storage is not None:
+            self.storage.append_wal(chunk)
         return self.registry.append_buffer(chunk)
 
     def insert(self, series: np.ndarray, ids: np.ndarray, ts: np.ndarray) -> None:
@@ -106,6 +116,9 @@ class CLSM:
         chunk, _ = self.registry.take_for_flush(n)
         if chunk is None:
             return
+        st = self.storage
+        if st is not None:
+            st.maybe_crash("flush-taken")
         run, _ = SortedRun.build(
             chunk.series,
             chunk.ids,
@@ -118,9 +131,16 @@ class CLSM:
             screen_dtype=self.cfg.screen_dtype,
             device=self.device,
         )
+        if st is not None:
+            # persist BEFORE publish: once queries can route to the run its
+            # files exist; the manifest commit below makes them the durable
+            # home of these entries (until then the WAL still covers them)
+            run = st.persist_run(run)
         # queries planned while the run was sorting saw the chunk as a dense
         # source; this single swap makes later plans see the run instead
-        self.registry.publish_flush(chunk, run)
+        snap = self.registry.publish_flush(chunk, run)
+        if st is not None:
+            st.commit_flush(chunk.n, snap)
         self.n_flushes += 1
         if self.cfg.merge:
             self._maybe_merge(0)
@@ -144,7 +164,12 @@ class CLSM:
                 continue
             victims = list(runs[:gf])
             merged = self._merge_runs(victims)
-            self.registry.publish_merge(lv, victims, merged)
+            st = self.storage
+            if st is not None:
+                merged = st.persist_run(merged)
+            snap = self.registry.publish_merge(lv, victims, merged)
+            if st is not None:
+                st.commit_merge(snap)
             # the target level may now overflow, and this one may still
             # hold >= gf runs — re-check both (next level first, matching
             # the old recursive order)

@@ -201,6 +201,7 @@ class SortedRun:
     device: object = "cuda"  # where the run's device arena lives
     _norms2: Optional[np.ndarray] = None  # lazy |x|^2 cache (materialized runs)
     _dev_view: Optional[object] = None  # lazy device arena (materialized runs)
+    _storage: Optional[object] = None  # on-disk home when file-backed (RunFiles)
 
     @property
     def n(self) -> int:
@@ -331,6 +332,14 @@ class SortedRun:
             get_engine(self.device).release_view(self._dev_view)
             self._dev_view = None
 
+    def release_storage(self) -> None:
+        """Drop the storage handle of a file-persisted run (deferred
+        retirement, like the device view). File deletion is owned by the
+        storage engine's manifest diff — a merged-away run's files were
+        already unlinked at the merge's manifest commit, and the open
+        memmaps kept the data alive for pinned queries until now."""
+        self._storage = None
+
     # ------------------------------------------------------------------ query
     def _entry_bytes(self) -> int:
         per = self.cfg.key_words * 4 + self.cfg.n_segments + 8
@@ -398,6 +407,17 @@ class SortedRun:
             screen_dtype = raw.screen_dtype
         else:
             device_view = table_rows = table_ids = fetch_account = None
+        prefetch_ranges = None
+        if self._storage is not None:
+            # file-backed run: hand the executor's coalesced row spans to
+            # the readahead pool so the mmap pages are faulting in while
+            # the lower-bound screen decides what to verify
+            from .storage.prefetch import get_pool  # lazy: storage imports ctree
+
+            arrays = [a for a in (self.series, self.sax, self.keys)
+                      if a is not None]
+            pool = get_pool()
+            prefetch_ranges = lambda ranges: pool.prefetch(arrays, ranges)
         return SourceOps(
             ids=self.ids,
             ts=self.ts,
@@ -411,6 +431,7 @@ class SortedRun:
             table_rows=table_rows,
             table_ids=table_ids,
             fetch_account=fetch_account,
+            prefetch_ranges=prefetch_ranges,
             screen_dtype=screen_dtype,
             device=self.device,
         )
@@ -674,10 +695,14 @@ class CTreeConfig:
 class CTree:
     """The read-optimized Coconut index: one SortedRun + insert gaps."""
 
-    def __init__(self, cfg: CTreeConfig, disk: Optional[DiskModel] = None):
+    def __init__(self, cfg: CTreeConfig, disk: Optional[DiskModel] = None,
+                 storage=None):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.disk = disk or DiskModel()
+        # optional file backend: built/rebuilt runs are persisted and served
+        # from mmaps (the static index has no WAL — a bulk build is re-runnable)
+        self.storage = storage
         self.run: Optional[SortedRun] = None
         # overflow entries absorbed by gaps (kept summarized + optionally raw)
         self._pending: list[tuple[np.ndarray, np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]] = []
@@ -693,6 +718,7 @@ class CTree:
     ) -> SortReport:
         scfg = self.cfg.summarization
         eff_block = max(8, int(self.cfg.block_size * self.cfg.fill_factor))
+        old = self.run
         self.run, report = SortedRun.build(
             series,
             ids,
@@ -705,6 +731,10 @@ class CTree:
             screen_dtype=self.cfg.screen_dtype,
             device=self.device,
         )
+        if self.storage is not None:
+            self.run = self.storage.persist_run(self.run)
+            if old is not None and old._storage is not None:
+                self.storage.drop_run(old)
         self.build_report = report
         return report
 
@@ -751,6 +781,7 @@ class CTree:
                 [self.run.ts] + [p[3] if p[3] is not None else np.zeros(len(p[1]), np.int64) for p in self._pending]
             )
         eff_block = max(8, int(self.cfg.block_size * self.cfg.fill_factor))
+        old = self.run
         self.run, self.build_report = SortedRun.from_arrays(
             scfg,
             syms,
@@ -763,6 +794,10 @@ class CTree:
             screen_dtype=self.cfg.screen_dtype,
             device=self.device,
         )
+        if self.storage is not None:
+            self.run = self.storage.persist_run(self.run)
+            if old._storage is not None:
+                self.storage.drop_run(old)
         self._pending, self._pending_n = [], 0
 
     # ---------------------------------------------------------------- query

@@ -227,7 +227,9 @@ def _kernel_topk_dists(
     data = np.ascontiguousarray(data, np.float32)
     ksel = min(k + 8, data.shape[0])  # slack absorbs f32 near-tie reordering
     q = torch.from_numpy(np.ascontiguousarray(Q, np.float32)).to(device)
-    x = torch.from_numpy(data).to(device)
+    # rows of a file-backed run arrive as a read-only memmap slice: copy
+    # them out, so that no tensor aliases the mapping
+    x = torch.from_numpy(data if data.flags.writeable else data.copy()).to(device)
     _, rows = kernel_ops.topk_ed_bucketed(q, x, ksel)
     return _rerank_slate(Q, data, rows, k)
 

@@ -45,7 +45,7 @@ runs'); it is ``"cuda"`` unless the caller says otherwise.
 from __future__ import annotations
 
 import dataclasses
-import os
+import tempfile
 import time
 from typing import Optional
 
@@ -53,19 +53,8 @@ import numpy as np
 
 from .clsm import CLSM, CLSMConfig
 from .ctree import RawStore, state_to_list
+from .storage.backend import StorageEngine, resolve_backend
 from .summarization import SummarizationConfig
-
-STORAGE_BACKENDS = ("model", "file")
-
-
-def resolve_backend(name: str) -> str:
-    """``auto`` resolves through ``REPRO_STORAGE`` (default ``model``)."""
-    if name == "auto":
-        name = os.environ.get("REPRO_STORAGE", "model")
-    if name not in STORAGE_BACKENDS:
-        raise ValueError(f"unknown storage backend {name!r} "
-                         f"(expected one of {STORAGE_BACKENDS} or 'auto')")
-    return name
 
 
 @dataclasses.dataclass
@@ -82,12 +71,12 @@ class StreamConfig:
     # Must be >= buffer_entries — below the flush threshold the worker
     # could never shrink the backlog (IngestPipeline validates this)
     max_lag_entries: Optional[int] = None
-    # storage backend: "model" (DiskModel simulation, the default) or
-    # "auto" (resolve through the REPRO_STORAGE env var, default model).
-    # "file" (crash-consistent mmap runs + WAL) raises until the storage
-    # engine is ported (ROADMAP Queue 1 item 6)
+    # storage backend: "model" (DiskModel simulation, the default),
+    # "file" (crash-consistent mmap runs + WAL —
+    # :mod:`repro_torch.core.storage`), or "auto" (resolve through the
+    # REPRO_STORAGE env var, default model)
     storage: str = "auto"
-    # file backend root (unused until the file backend is ported)
+    # file backend root; None -> a fresh temp directory per index
     storage_dir: Optional[str] = None
     # device-arena storage dtype for the screen tier, inherited by the
     # raw store and every flushed/merged run (f32|bf16|int8; None
@@ -106,11 +95,14 @@ class StreamingIndex:
         if cfg.ingest not in ("sync", "async"):
             raise ValueError(f"unknown ingest mode {cfg.ingest}")
         self.cfg = cfg
-        if resolve_backend(cfg.storage) == "file" and raw is None:
-            raise NotImplementedError(
-                'storage="file" is not ported yet (ROADMAP Queue 1 item 6, '
-                "the storage engine); use the model backend")
         self.storage = None
+        if resolve_backend(cfg.storage) == "file" and raw is None:
+            # an explicitly provided RawStore keeps its own backing; the
+            # file backend only engages when it owns the raw rows too
+            root = cfg.storage_dir or tempfile.mkdtemp(prefix="coconut-store-")
+            self.storage = StorageEngine(root, cfg.summarization,
+                                         device=cfg.device)
+            raw = self.storage.raw
         self.raw = raw or RawStore(cfg.summarization.series_len,
                                    screen_dtype=cfg.screen_dtype,
                                    device=cfg.device)
@@ -130,7 +122,13 @@ class StreamingIndex:
             screen_dtype=cfg.screen_dtype,
             device=cfg.device,
         )
-        self.lsm = CLSM(lsm_cfg, disk=self.raw.disk)
+        self.lsm = CLSM(lsm_cfg, disk=self.raw.disk, storage=self.storage)
+        if self.storage is not None:
+            # load whatever a previous process made durable: the manifest's
+            # runs plus the replayed WAL chunks, installed in one epoch bump
+            levels, buffer = self.storage.recover()
+            if levels or buffer:
+                self.lsm.registry.restore(levels, buffer)
         # the PP/TP/BTP plan flag: PP never skips runs by time, it only
         # filters entries during verification
         self._window_skip = cfg.scheme in ("TP", "BTP")
@@ -140,6 +138,14 @@ class StreamingIndex:
 
             self.pipeline = IngestPipeline(
                 self.lsm, max_lag_entries=cfg.max_lag_entries)
+
+    @classmethod
+    def recover(cls, cfg: StreamConfig, storage_dir: str) -> "StreamingIndex":
+        """Reopen a file-backed index from its storage directory: the
+        durable runs and WAL entries come back queryable (on ``cfg.device``),
+        ids keep ascending from the durable extent, and ingest may continue."""
+        cfg = dataclasses.replace(cfg, storage="file", storage_dir=storage_dir)
+        return cls(cfg)
 
     # ---------------------------------------------------------------- ingest
     def ingest(self, series: np.ndarray, ts: np.ndarray) -> np.ndarray:
@@ -165,9 +171,12 @@ class StreamingIndex:
         return self.pipeline.drain(flush_buffer=flush_buffer, timeout=timeout)
 
     def close(self) -> None:
-        """Stop the async ingest worker (no-op in sync mode)."""
+        """Stop the async ingest worker, then close the file backend's
+        files (each a no-op where there is none)."""
         if self.pipeline is not None:
             self.pipeline.close()
+        if self.storage is not None:
+            self.storage.close()
 
     def ingest_lag(self) -> dict:
         """Freshness of the queryable state vs the ingested stream:
@@ -274,7 +283,9 @@ class StreamingIndex:
     def measured_io(self) -> dict:
         """Measured byte counters of the file backend (empty under the
         modeled backend — there is nothing real to measure)."""
-        return {}
+        if self.storage is None:
+            return {}
+        return self.storage.measured()
 
     def index_bytes(self) -> int:
         return self.lsm.index_bytes()

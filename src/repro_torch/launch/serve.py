@@ -11,8 +11,12 @@ ingesting, with verification on the device.
 ``--gateway`` serves an arrival stream of single-query clients through the
 dynamic-batching gateway instead (``serve_gateway``). The device arenas
 live on ``--device`` (``cuda`` unless asked otherwise; without a card that
-default raises). ``--mode lm`` and ``--shard mesh`` are refused at parse
-time until their parts are ported.
+default raises). ``--storage file --storage-dir DIR`` keeps the index in
+crash-consistent files under DIR (raw rows, mmap'd runs, a write-ahead log
+and a manifest); serving the same DIR again, or
+``StreamingIndex.recover(cfg, DIR)``, reopens what was made durable.
+``--mode lm`` and ``--shard mesh`` are refused at parse time until their
+parts are ported.
 """
 from __future__ import annotations
 
@@ -50,10 +54,14 @@ def serve_coconut(args) -> dict:
     line reports the engine's cumulative ``traces``/``hits``.
     ``--no-prewarm`` skips it.
 
+    ``--storage file`` serves from the crash-consistent file backend
+    (``--storage-dir``, default a fresh temp dir) and logs its measured I/O.
+
     Returns what was served: per-batch latency, recall (approx tier) and
-    ``served`` entries ``(batch, t0, t1, queries, ids)``, the engine stats,
-    and the index itself for callers that check the answers."""
-    tier = args.tier
+    ``served`` entries ``(batch, t0, t1, queries, ids, d2)``, the engine
+    stats, the measured I/O (empty under the model backend) and the index
+    itself for callers that check the answers."""
+    tier = "approx" if args.approx else args.tier
     device = getattr(args, "device", "cuda")
     scfg = SummarizationConfig(series_len=args.series_len, n_segments=16,
                                card_bits=8)
@@ -61,7 +69,12 @@ def serve_coconut(args) -> dict:
         scheme=args.scheme, summarization=scfg, buffer_entries=4096,
         growth_factor=4, block_size=512, ingest=args.ingest,
         # getattr: programmatic callers (tests) build partial Namespaces
+        storage=getattr(args, "storage", "auto"),
+        storage_dir=getattr(args, "storage_dir", None),
         screen_dtype=getattr(args, "screen_dtype", None), device=device))
+    if idx.storage is not None:
+        print(f"[serve] file storage backend at {idx.storage.root} "
+              "(WAL + manifest, crash-consistent)", flush=True)
     idx.raw.disk.keep_log = True
     engine = get_engine(device)
     if args.prewarm:
@@ -84,13 +97,14 @@ def serve_coconut(args) -> dict:
             t0b, t1b = max(0, b - args.window), b
             t0 = time.perf_counter()
             if tier == "approx":
-                _, got_ids, _ = idx.window_knn_approx_batch(
+                got_d2, got_ids, _ = idx.window_knn_approx_batch(
                     qs, t0b, t1b, k=args.k, n_blocks=args.n_blocks)
             else:
-                _, got_ids, _ = idx.window_knn_batch(qs, t0b, t1b, k=args.k)
+                got_d2, got_ids, _ = idx.window_knn_batch(qs, t0b, t1b,
+                                                          k=args.k)
             dt = (time.perf_counter() - t0) / args.query_batch
             lat.append(dt)
-            served.append((b, t0b, t1b, qs, got_ids))
+            served.append((b, t0b, t1b, qs, got_ids, got_d2))
             es = engine.stats
             lag = idx.ingest_lag()
             lags.append(lag["lag_entries"])
@@ -138,9 +152,17 @@ def serve_coconut(args) -> dict:
           f"{idx.n_partitions} partitions, "
           f"index={idx.index_bytes()>>20} MiB, "
           f"modeled io={idx.raw.disk.modeled_seconds():.2f}s")
+    m = idx.measured_io()
+    if m:
+        print(f"[serve] measured io: wrote "
+              f"{(m['raw_write_bytes']+m['run_write_bytes']+m['wal_write_bytes'])/1e6:.1f} MB "
+              f"(raw {m['raw_write_bytes']/1e6:.1f}, runs {m['run_write_bytes']/1e6:.1f}, "
+              f"wal {m['wal_write_bytes']/1e6:.1f}), read {m['raw_read_bytes']/1e6:.1f} MB, "
+              f"{m['manifest_commits']} manifest commits, "
+              f"{m['prefetch_spans']} readahead spans")
     print("[serve] access heat map:", render_heatmap(idx.raw.disk.heatmap()))
     return {"latency_ms": lat_ms, "recalls": recalls, "served": served,
-            "engine": dict(es), "index": idx}
+            "engine": dict(es), "measured_io": m, "index": idx}
 
 
 def serve_gateway(args) -> dict:
@@ -182,6 +204,8 @@ def serve_gateway(args) -> dict:
     idx = StreamingIndex(StreamConfig(
         scheme=args.scheme, summarization=scfg, buffer_entries=4096,
         growth_factor=4, block_size=512, ingest="async",
+        storage=getattr(args, "storage", "auto"),
+        storage_dir=getattr(args, "storage_dir", None),
         screen_dtype=getattr(args, "screen_dtype", None), device=device))
     pre = max(1, (2 * args.batches) // 3)
     for b in range(pre):
@@ -320,6 +344,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sync: flush/merge inline on the serving thread; "
                          "async: background ingest pipeline (queries never "
                          "block on compaction, freshness lag is logged)")
+    ap.add_argument("--storage", default="auto",
+                    choices=["auto", "model", "file"],
+                    help="storage backend: model (DiskModel simulation), "
+                         "file (crash-consistent mmap runs + WAL), or auto "
+                         "(the REPRO_STORAGE env var, default model)")
+    ap.add_argument("--storage-dir", default=None,
+                    help="file backend root directory (default: a fresh "
+                         "temp dir); reopening the same dir recovers the "
+                         "durable index state")
     ap.add_argument("--screen-dtype", default=None,
                     choices=["f32", "bf16", "int8", "auto"],
                     help="device-arena storage dtype for the screen tier: "
@@ -353,6 +386,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "the tier/n_blocks grid) instead of the static "
                          "recommender rule; adaptation state is logged "
                          "every 64 requests")
+    ap.add_argument("--approx", action="store_true",
+                    help="deprecated alias for --tier approx")
     ap.add_argument("--no-prewarm", dest="prewarm", action="store_false",
                     help="skip walking the pass ladder and building the "
                          "kernels at startup (the first batch pays the build)")

@@ -7,6 +7,7 @@ card. Nothing here imports JAX, so the machine with the card runs it:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import collections
+import dataclasses
 
 import numpy as np
 import pytest
@@ -667,3 +668,45 @@ def test_knn_batch_beyond_one_pass_does_not_depend_on_the_device(cuda, backend):
     d2 = ((X[None].astype(np.float64) - Q[:, None]) ** 2).sum(-1)
     want = np.argsort(d2, axis=1, kind="stable")[:, :200]
     np.testing.assert_array_equal(out[1][1], want)
+
+
+def test_file_backed_index_answers_as_the_model_backed_one(cuda, tmp_path):
+    """A small file-backed StreamingIndex on the card (its arenas filled
+    from memory-mapped files) answers bit for bit as the model-backed one,
+    and so does the index recovered from its directory, on the card; the
+    device screen launches in each, and topk_ed under ``backend="kernel"``."""
+    from repro_torch.core import StreamConfig, StreamingIndex, SummarizationConfig
+
+    rng = np.random.default_rng(11)
+    batches = [rng.standard_normal((300, 64)).astype(np.float32).cumsum(axis=1)
+               for _ in range(12)]
+    Q = rng.standard_normal((12, 64)).astype(np.float32).cumsum(axis=1)
+    cfg = StreamConfig(scheme="BTP", summarization=SummarizationConfig(
+        series_len=64, n_segments=8, card_bits=6), buffer_entries=1024,
+        growth_factor=3, block_size=128, storage="model", device="cuda")
+
+    def ask(idx, backend="device"):
+        ops.reset_launches()
+        out = [idx.window_knn_batch(Q, t0, t1, k=5, backend=backend)
+               for t0, t1 in ((0, 11), (2, 9))]
+        assert ops.LAUNCHES["topk_ed" if backend == "kernel" else "screen_select"] > 0
+        return out
+
+    answers = []
+    for storage in ("model", "file"):
+        idx = StreamingIndex(dataclasses.replace(cfg, storage=storage,
+                                                 storage_dir=str(tmp_path)))
+        for b, x in enumerate(batches):
+            idx.ingest(x, np.full(300, b, np.int64))
+        answers.append(ask(idx))
+        idx.close()
+    rec = StreamingIndex.recover(cfg, str(tmp_path))
+    assert rec.raw.n == 12 * 300 and rec.raw.device.type == "cuda"
+    runs = list(rec.lsm.registry.current().runs_newest_first())
+    assert runs and all(torch.device(r.device).type == "cuda" for r in runs)
+    answers += [ask(rec), ask(rec, "kernel")]
+    for got in answers[1:]:
+        for a, b in zip(answers[0], got):
+            np.testing.assert_array_equal(a[1], b[1])
+            np.testing.assert_array_equal(a[0], b[0])
+    rec.close()

@@ -78,9 +78,10 @@ def test_serve_coconut_serves_the_reference_ids(tier, ingest, dtype,
     served = [e for e in plog if (e[0] == "window_knn_approx_batch")
               == (tier == "approx")]
     assert len(out["served"]) == len(served) == 2
-    for (b, t0, t1, qs, ids), rec in zip(out["served"], served):
+    for (b, t0, t1, qs, ids, d2), rec in zip(out["served"], served):
         assert (t0, t1) == rec[1:3] and qs.shape == (12, 32)
         np.testing.assert_array_equal(ids, rec[4])
+        np.testing.assert_array_equal(d2, rec[3])
     assert out["latency_ms"].shape == (2,)
     if ingest == "sync":  # async runs may still be unpublished at query time
         assert out["engine"]["calls"] > calls0  # the device screen served
@@ -177,13 +178,106 @@ def test_serve_gateway_tiny_run_on_the_cpu(capsys):
         assert tag in text, tag
 
 
-def test_parser_keeps_the_reference_flags():
+def _reference_parser(monkeypatch):
+    """The reference builds its parser inside ``main``: let ``main`` build
+    it, and stop it at ``parse_args``."""
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def capture(self, *a, **kw):
+        seen.append(self)
+        raise Stop
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", capture)
+        with pytest.raises(Stop):
+            rserve.main()
+    return seen[0]
+
+
+def _flags(ap):
+    return {a.option_strings[0]: a for a in ap._actions
+            if a.option_strings and a.dest != "help"}
+
+
+def test_parser_keeps_the_reference_flags(monkeypatch):
+    """Flag for flag, the port's parser is the reference's: the same
+    destinations, defaults, choices, types and actions. It adds
+    ``--device``; ``--arch`` and ``--decode-tokens`` (the LM mode's) wait
+    for the LM substrate."""
+    ref, port = _flags(_reference_parser(monkeypatch)), _flags(pserve.build_parser())
+    assert set(port) - set(ref) == {"--device"}
+    assert set(ref) - set(port) == {"--arch", "--decode-tokens"}
+    for flag in set(ref) & set(port):
+        r, p = ref[flag], port[flag]
+        assert (p.option_strings, p.dest, p.default, p.choices, p.type,
+                p.nargs, p.const, type(p)) == (
+            r.option_strings, r.dest, r.default, r.choices, r.type,
+            r.nargs, r.const, type(r)), flag
     args = pserve.build_parser().parse_args([])
-    for flag in ("scheme", "batches", "batch_size", "series_len",
-                 "query_batch", "window", "k", "tier", "n_blocks", "ingest",
-                 "screen_dtype", "prewarm") + GATEWAY_FLAGS:
-        assert hasattr(args, flag)
     assert args.device == "cuda"  # the card unless the caller asks otherwise
+    assert (args.approx, args.storage, args.storage_dir) == (False, "auto", None)
+
+
+SMALL = ["--device", "cpu", "--batches", "10", "--batch-size", "500",
+         "--series-len", "64", "--query-batch", "12", "--k", "3"]
+
+
+def _served(out):
+    return [(b, t0, t1, ids, d2) for b, t0, t1, _, ids, d2 in out["served"]]
+
+
+def _assert_served_equal(a, b):
+    assert len(a) == len(b) > 0
+    for x, y in zip(a, b):
+        assert x[:3] == y[:3]
+        np.testing.assert_array_equal(x[3], y[3])
+        np.testing.assert_array_equal(x[4], y[4])
+
+
+def test_approx_flag_is_the_approximate_tier(capsys):
+    """``--approx``, the reference's deprecated alias, serves what ``--tier
+    approx`` serves (and the log names the approximate tier)."""
+    outs = []
+    for argv in (["--approx"], ["--tier", "approx"]):
+        args = pserve.build_parser().parse_args(SMALL + argv)
+        outs.append(pserve.serve_coconut(args))
+        text = capsys.readouterr().out
+        assert "queries (approx)" in text and "recall@3=" in text
+        assert len(outs[-1]["recalls"]) == 2
+    _assert_served_equal(_served(outs[0]), _served(outs[1]))
+    assert outs[0]["recalls"] == outs[1]["recalls"]
+
+
+def test_serve_file_storage_serves_the_model_answers_and_reopens(tmp_path,
+                                                                capsys):
+    """``--storage file --storage-dir DIR`` serves what ``--storage model``
+    serves, logs its measured I/O, and leaves a directory that
+    ``StreamingIndex.recover`` reopens with every row and the same answers."""
+    out_m = pserve.serve_coconut(pserve.build_parser().parse_args(
+        SMALL + ["--storage", "model"]))
+    assert out_m["measured_io"] == {}
+    assert "[serve] measured io" not in capsys.readouterr().out
+    out_f = pserve.serve_coconut(pserve.build_parser().parse_args(
+        SMALL + ["--storage", "file", "--storage-dir", str(tmp_path)]))
+    text = capsys.readouterr().out
+    assert f"[serve] file storage backend at {tmp_path}" in text
+    assert "[serve] measured io: wrote" in text
+    m = out_f["measured_io"]
+    assert m["raw_write_bytes"] == 10 * 500 * 64 * 4 and m["wal_records"] == 10
+    assert m["manifest_commits"] > 0
+    _assert_served_equal(_served(out_m), _served(out_f))
+    idx = out_f["index"]
+    idx.close()
+    rec = pstream.StreamingIndex.recover(idx.cfg, str(tmp_path))
+    assert rec.raw.n == 10 * 500 and rec.n_partitions == idx.n_partitions
+    b, t0, t1, qs, ids, d2 = out_f["served"][-1]
+    vals, got, _ = rec.window_knn_batch(qs, t0, t1, k=3)
+    np.testing.assert_array_equal(got, ids)
+    np.testing.assert_array_equal(vals, d2)
+    rec.close()
 
 
 @pytest.mark.parametrize("gen", ["random_walk", "astronomy", "seismic"])
