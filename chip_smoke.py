@@ -76,7 +76,8 @@ Phases, each reported on lines of its own:
             front's): its device time, its plain version, one PyTorch
             library yardstick (used nowhere in the port) and the least time
             the card could take (its bound); paa and sax_pack also over the
-            whole 1,024,000-series set (logged).
+            whole 1,024,000-series set, and topk_ed at the mesh phase's most
+            frequent shape (logged).
 12. gateway: run after the serve phases (once the repeating events' index
             is freed) and before the timing phase. ``serve.py --gateway
             --autotune`` (``serve_gateway``, as the command line runs it) at
@@ -134,6 +135,34 @@ Phases, each reported on lines of its own:
             Logged: p50/p95 ms/query beside the exact f32 phase's, the
             measured I/O (raw, run and WAL bytes, manifest commits,
             readahead spans), the recovery time and the phase's wall time.
+
+14. mesh:   run after the file storage phase and before the timing phase.
+            (a) ``serve.py --shard mesh`` (``serve_coconut``, as the command
+            line runs it) with the exact f32 phase's flags and seeds, on the
+            one-rank NCCL mesh ``core.distributed`` makes ((1, 1): one card):
+            every window's entries gathered, screened by one topk_ed launch a
+            (query shard, runs shard) tile, re-ranked in f64 and certified.
+            Fails unless the mesh is NCCL's, every one of the 40 served
+            batches' ids and f32 d2 equal, bit for bit, the exact f32
+            phase's and the f64 brute force over the window, every call
+            launched topk_ed (counts set to 0 just before each call and read
+            just after it), and the queries that fell back to the host exact
+            screen stay under the exact f32 limit. Every fifth call runs
+            under the profiler (busy share, H2D ms, topk_ed_kernel ms);
+            p50/p95 ms/query come from the others. (b) ``make_build_fn`` /
+            ``make_query_fn`` over the same 1,024,000 series on a 1-D
+            one-rank mesh (the serving summarization, bucket slack
+            MESH_SLACK): overflow 0, every id once among the valid entries,
+            the valid keys globally sorted, the build bitwise that of the
+            plain versions, paa and sax_pack launched; 16 queries (the last
+            served batch) at a verification budget of MESH_VERIFY_BUDGET,
+            paa and one mindist a query launched, answers equal to the plain
+            versions' path up to f32 rounding, each d2 the f64 distance of
+            its id up to f32 rounding, recall@5 against the f64 brute force
+            logged; then ``mesh_topk_candidates`` over ``valid_entries`` of
+            the build (centered), re-ranked in f64, must be the brute
+            force's top 5. The group is torn down after. Logged: the wall
+            time of each part and of the phase.
 
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -263,6 +292,10 @@ GATEWAY_SLO_MS = 50.0
 # file storage phase: free space its directory must have (1 GiB of raw rows,
 # the runs' files and a merge's old and new files side by side, with room)
 STORE_FREE_BYTES = 4 << 30
+# mesh phase: the distributed build's bucket capacity (slots a shard per
+# entry it sends) and the distributed query's verification budget
+MESH_SLACK = 2.0
+MESH_VERIFY_BUDGET = 4096
 T_START = time.perf_counter()
 
 
@@ -763,24 +796,36 @@ def phase_min_ed_kernels(torch, ops, ref, worst):
 
 
 @contextlib.contextmanager
-def probe_tier(torch, ops, engine, method, shapes):
+def probe_tier(torch, ops, engine, method, shapes, mesh=False):
     """Wrap the serving tier's query method of ``StreamingIndex`` (and only
     it) for one phase. Around each call: the launch counts are set to 0 just
-    before it and read just after it, and the engine's counters are read
-    before and after, so a recall oracle that runs the other tier counts for
-    nothing. Every TRACE_EVERY-th call also runs under the profiler, which
-    gives the device's busy share, and records the kernels' call shapes;
-    the other calls run bare and are the ones the latency percentiles use."""
+    before it and read just after it (kept per call in ``calls``), and the
+    engine's counters are read before and after, so a recall oracle that
+    runs the other tier counts for nothing. Every TRACE_EVERY-th call also
+    runs under the profiler, which gives the device's busy share, and
+    records the screens' call shapes; the other calls run bare and are the
+    ones the latency percentiles use. With ``mesh`` (``--shard mesh``, which
+    screens through topk_ed and leaves the engine alone), every call records
+    topk_ed's call shapes, and the queries that fall back to the host exact
+    screen (``execute._screen_topk_exact``) are counted."""
+    import importlib
+
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.streaming import StreamingIndex
 
-    real = getattr(StreamingIndex, method)
+    # the module (``repro_torch.core`` re-exports its function ``execute``)
+    execute = importlib.import_module("repro_torch.core.execute")
+    real, real_exact = getattr(StreamingIndex, method), execute._screen_topk_exact
     kernels = {n: getattr(ops, n) for n in ("screen_select", "screen_select_quant")}
-    rec = {"n": 0, "traced": [], "launches": collections.Counter(),
+    rec = {"n": 0, "traced": [], "calls": [], "launches": collections.Counter(),
            "traced_launches": collections.Counter(), "engine": collections.Counter(),
            "traced_engine": collections.Counter(), "busy": collections.Counter(),
-           "traced_s": 0.0}
+           "traced_s": 0.0, "fallback_queries": 0}
+
+    def exact(Q, data, k):
+        rec["fallback_queries"] += int(Q.shape[0])
+        return real_exact(Q, data, k)
 
     def recorder(fname):
         def wrapped(q, x, *args, rows=None):
@@ -805,9 +850,11 @@ def probe_tier(torch, ops, engine, method, shapes):
             t0 = time.perf_counter()
         ops.reset_launches()  # counts from 0 for this call of the main path
         try:
-            return real(self, *args, **kwargs)
+            with record_shapes(ops, shapes) if mesh else contextlib.nullcontext():
+                return real(self, *args, **kwargs)
         finally:
             launches = dict(ops.LAUNCHES)
+            rec["calls"].append(launches)
             if traced:
                 torch.cuda.synchronize()
                 rec["traced_s"] += time.perf_counter() - t0
@@ -823,10 +870,13 @@ def probe_tier(torch, ops, engine, method, shapes):
                 rec["traced_engine"].update(delta)
 
     setattr(StreamingIndex, method, probed)
+    if mesh:
+        execute._screen_topk_exact = exact
     try:
         yield rec
     finally:
         setattr(StreamingIndex, method, real)
+        execute._screen_topk_exact = real_exact
         for n, fn in kernels.items():
             setattr(ops, n, fn)
 
@@ -1066,6 +1116,258 @@ def phase_file_storage(torch, ops, serve, engine, shapes, model_served):
     summary["phase_seconds"] = time.perf_counter() - t_phase
     log(f"{name}: phase {summary['phase_seconds']:.1f}s (serving {wall:.1f}s)")
     return launches, summary
+
+
+# ------------------------------------------------------------------- the mesh
+@contextlib.contextmanager
+def plain_versions(ops, ref):
+    """The kernel wrappers the distributed module calls, replaced by their
+    plain versions (run on the same card tensors) while inside."""
+    real = {n: getattr(ops, n) for n in ("paa", "sax_and_keys", "mindist", "topk_ed")}
+    ops.paa = lambda x, cfg: ref.paa_ref(x, cfg.n_segments)
+    ops.sax_and_keys = lambda p, cfg: ref.sax_pack_ref(
+        p, ops.breakpoint_table(cfg.card_bits, p.device), cfg.card_bits, cfg.key_words)
+    ops.mindist = lambda q, lo, hi, cfg: ref.mindist_ref(q, lo, hi, cfg.segment_len)
+    ops.topk_ed = lambda q, x, k: ref.topk_ed_ref(q, x, min(k, x.shape[0]))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(ops, n, fn)
+
+
+def keys_sorted(torch, keys):
+    """Whether the (N, nw) key words are in lexicographic order, on the card."""
+    if keys.shape[0] < 2:
+        return True
+    d = keys[1:] - keys[:-1]
+    first = (d != 0).int().argmax(1, keepdim=True)  # first differing word (0 if none)
+    return bool((d.gather(1, first) >= 0).all())
+
+
+def phase_mesh(torch, ops, ref, serve, engine, model_served):
+    """(a) ``serve.py --shard mesh`` with the exact f32 phase's flags and
+    seeds on a one-rank NCCL mesh: every served batch bitwise the exact f32
+    phase's and the f64 brute force, topk_ed launched in every call, host
+    fallbacks counted under a limit; (b) the distributed build and query
+    (``make_build_fn`` / ``make_query_fn``) on the same series, held to the
+    plain versions on the card (each query's mindist bit for bit at the
+    query's own regions, whose zero bounds are counted), the f64 distances
+    of their ids and the brute force; and ``mesh_topk_candidates`` over ``valid_entries`` of the
+    build, re-ranked in f64, equal to the brute force (docstring phase 14).
+    Returns (launches, summary, the mesh path's topk_ed shape)."""
+    import numpy as np
+
+    from repro_torch.core import SummarizationConfig, distributed
+    from repro_torch.core.execute import _rerank_slate
+
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+    summary = {}
+    mesh_shapes = collections.Counter()
+    argv = ["--scheme", "BTP", "--batches", str(BATCHES),
+            "--batch-size", str(BATCH_SIZE), "--series-len", str(SERIES_LEN),
+            "--query-batch", str(QUERY_BATCH), "--window", str(WINDOW),
+            "--k", str(K), "--n-blocks", str(N_BLOCKS), "--screen-dtype", "f32",
+            "--storage", "model", "--shard", "mesh", "--device", DEVICE]
+    name = "serve exact f32 mesh"
+    log(f"{name}: python -m repro_torch.launch.serve {' '.join(argv)}")
+    args = serve.build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    with probe_tier(torch, ops, engine, "window_knn_batch", mesh_shapes, mesh=True) as rec:
+        out = serve.serve_coconut(args)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mesh = distributed.default_batch_mesh(DEVICE)
+    import torch.distributed as dist
+
+    log(f"{name}: mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} on "
+        f"{dist.get_backend()}, world size {dist.get_world_size()}")
+    if dist.get_backend() != ("nccl" if DEVICE == "cuda" else "gloo") or tuple(
+            mesh.mesh.shape) != (1, 1):
+        fail(f"{name}: the mesh is not a one-rank NCCL mesh")
+    calls = rec["calls"]
+    if len(calls) != len(model_served) or len(out["served"]) != len(model_served):
+        fail(f"{name}: {len(calls)} probed calls, {len(out['served'])} served batches, "
+             f"the exact f32 phase {len(model_served)}")
+    no_kernel = [i for i, c in enumerate(calls) if c.get("topk_ed", 0) == 0]
+    if no_kernel:
+        fail(f"{name}: served calls {no_kernel} launched no topk_ed")
+    for c in calls:
+        launches.update(c)
+    idx = out["index"]
+    X = torch.from_numpy(idx.raw.scan()).to(DEVICE)
+    for (b, t0b, t1b, qs, ids, d2), want in zip(out["served"], model_served):
+        if (b, t0b, t1b) != want[:3] or not (
+                np.array_equal(ids, want[3])
+                and np.array_equal(d2.view(np.uint32), want[4].view(np.uint32))):
+            fail(f"{name} batch {b + 1}: ids or f32 d2 differ from the exact f32 phase's")
+        lo, hi = t0b * BATCH_SIZE, (t1b + 1) * BATCH_SIZE
+        check_exact(torch, X[lo:hi], qs, torch.from_numpy(ids).to(DEVICE) - lo,
+                    f"{name} batch {b + 1}")
+    queries = len(calls) * QUERY_BATCH
+    share = rec["fallback_queries"] / queries
+    traced = set(rec["traced"])
+    lat = [float(v) for i, v in enumerate(out["latency_ms"]) if i not in traced]
+    summary["serve"] = {
+        "p50_ms_per_query": float(percentile(lat, 50)),
+        "p95_ms_per_query": float(percentile(lat, 95)), "untraced_batches": len(lat),
+        "fallback_queries": rec["fallback_queries"], "fallback_share": share,
+        "launches": dict(launches), "seconds": wall,
+        "traced": report_traced(name, {"busy": rec["busy"], "seconds": rec["traced_s"],
+                                       "launches": rec["traced_launches"],
+                                       "calls": len(rec["traced"])}, "topk_ed")}
+    log(f"{name}: {len(calls)} served batches bitwise the exact f32 phase's and the "
+        f"f64 brute force; topk_ed launched in every call ({launches['topk_ed']} in all); "
+        f"{rec['fallback_queries']} of {queries} queries fell back to the host screen "
+        f"(share {share:.4f}, limit {FALLBACK_LIMIT[('exact', 'f32')]}); ms/query "
+        f"p50={summary['serve']['p50_ms_per_query']:.4f} "
+        f"p95={summary['serve']['p95_ms_per_query']:.4f} over {len(lat)} untraced "
+        f"batches; {wall:.1f}s")
+    if share > FALLBACK_LIMIT[("exact", "f32")]:
+        fail(f"{name}: {share:.4f} of the queries fell back to the host screen")
+    qs = out["served"][-1][3]
+    del out, idx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the distributed build and query on the same series, one rank
+    name = "distributed build and query"
+    n_rows = X.shape[0]
+    scfg = SummarizationConfig(series_len=SERIES_LEN, n_segments=16, card_bits=8)
+    dcfg = distributed.DistBuildConfig(summarization=scfg, capacity_slack=MESH_SLACK)
+    mesh1 = distributed.make_mesh((1,), ("data",), DEVICE)
+    build = distributed.make_build_fn(mesh1, ("data",), dcfg)
+    query = distributed.make_query_fn(mesh1, ("data",), dcfg, k=K,
+                                      verify_budget=MESH_VERIFY_BUDGET)
+    ids = torch.arange(n_rows, dtype=torch.int32, device=DEVICE)
+    ops.reset_launches()  # counts from 0 for the build
+    t0 = time.perf_counter()
+    built = build(X, ids)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    got = dict(ops.LAUNCHES)
+    launches.update(got)
+    if got["paa"] == 0 or got["sax_pack"] == 0:
+        fail(f"{name}: the build launched {got}")
+    inval = built["invalid"] == 0
+    overflow, n_valid = int(built["overflow"]), int(built["n_valid"].sum())
+    if overflow != 0 or n_valid != n_rows:
+        fail(f"{name}: overflow {overflow}, {n_valid} valid entries of {n_rows}")
+    if not keys_sorted(torch, built["keys"][inval]):
+        fail(f"{name}: the valid keys are not globally sorted")
+    if not torch.equal(torch.sort(built["ids"][inval]).values, ids):
+        fail(f"{name}: the valid ids are not the {n_rows} series, each once")
+    with plain_versions(ops, ref):
+        plain = build(X, ids)
+    for key, t in built.items():
+        if not torch.equal(t, plain[key]):
+            fail(f"{name}: the build's {key} differ from the plain versions'")
+    del plain
+    log(f"{name}: built {n_rows} series on {dcfg} in {build_s:.2f}s "
+        f"({built['invalid'].shape[0]} slots), launches {got}; overflow 0, every id once, "
+        "keys globally sorted, bitwise the plain versions' build")
+    Q = torch.from_numpy(qs).to(DEVICE)
+    ops.reset_launches()  # counts from 0 for the query
+    t0 = time.perf_counter()
+    d2, qids = query(built, Q)
+    torch.cuda.synchronize()
+    query_s = time.perf_counter() - t0
+    got = dict(ops.LAUNCHES)
+    launches.update(got)
+    if got["paa"] == 0 or got["mindist"] != Q.shape[0]:
+        fail(f"{name}: the query launched {got}")
+    with plain_versions(ops, ref):
+        pd2, pids = query(built, Q)
+    torch.cuda.synchronize()
+    # ids equal except between candidates whose d2 lie within f32 rounding
+    rtol = (SERIES_LEN + 4) * EPS32
+    differ = qids != pids
+    if bool(((d2 - pd2).abs() > rtol * pd2.abs()).any()):
+        fail(f"{name}: the query differs from the plain versions' path")
+    # the pruning front at the query's own inputs: each query's mindist
+    # against every region of the build (open edges at -+1e30), bit for bit
+    # the plain version on the same card tensors; the share of zero bounds
+    # among the valid regions (a zero bound prunes nothing, and the top V by
+    # bound fall to key order) and of symbols at the outer edges
+    lo, hi = distributed.sax_regions(built["sym"], scfg)
+    qp = ops.paa(Q, scfg)
+    zero = 0
+    for i in range(Q.shape[0]):
+        kb = ops.mindist(qp[i].contiguous(), lo, hi, scfg)
+        pb = ref.mindist_ref(qp[i].contiguous(), lo, hi, scfg.segment_len)
+        if not torch.equal(kb.view(torch.int32), pb.view(torch.int32)):
+            fail(f"{name}: query {i}'s mindist over the build's {lo.shape[0]} regions "
+                 "differs from the plain version's")
+        zero += int((kb[inval] == 0).sum())
+    zero_share = zero / (Q.shape[0] * n_valid)
+    vsym = built["sym"][inval]
+    edge_share = float(((vsym == 0) | (vsym == (1 << scfg.card_bits) - 1)).float().mean())
+    bps = ops.breakpoint_table(scfg.card_bits, qp.device)
+    q_edge = float(((qp < bps[0]) | (qp >= bps[-1])).float().mean())
+    del lo, hi, vsym
+    log(f"{name}: mindist at the query's own inputs ({Q.shape[0]} queries x "
+        f"{built['sym'].shape[0]} regions) bitwise the plain version's; zero bounds "
+        f"{zero_share:.4f} of the valid regions; symbols at the outer edges: "
+        f"{edge_share:.4f} of the entries', {q_edge:.4f} of the queries'")
+    Xd = X.double()
+    Qd = Q.double()
+    via = ((Xd[qids.long()] - Qd[:, None, :]) ** 2).sum(-1)
+    err = float(((d2.double() - via).abs() / via.clamp_min(1e-30)).max())
+    if err > rtol:
+        fail(f"{name}: a returned d2 is {err:.3e} from the f64 distance of its id")
+    full = torch.stack([((Xd - Qd[i]) ** 2).sum(1) for i in range(Q.shape[0])])
+    want = torch.sort(full, dim=1, stable=True).indices[:, :K]
+    hits = sum(len(set(a.tolist()) & set(b.tolist()))
+               for a, b in zip(qids.long().cpu(), want.cpu()))
+    recall = hits / want.numel()
+    log(f"{name}: {Q.shape[0]} queries at V={MESH_VERIFY_BUDGET} in {query_s * 1e3:.1f} ms, "
+        f"launches {got}; answers equal the plain versions' path ({int(differ.sum())} ids "
+        f"differ within f32 rounding); max rel |d2 - f64 d2 of its id| {err:.3e} (limit "
+        f"{rtol:.3e}); recall@{K} against the f64 brute force {recall:.4f}")
+    del Xd, via
+    series_v, gids_v = distributed.valid_entries(built)
+    del built
+    gc.collect()
+    torch.cuda.empty_cache()
+    mu = series_v.mean(axis=0)
+    ops.reset_launches()  # counts from 0 for the mesh screen
+    t0 = time.perf_counter()
+    with record_shapes(ops, mesh_shapes):
+        _, rows = distributed.mesh_topk_candidates(qs - mu, series_v - mu, K + 8,
+                                                   device=DEVICE)
+    screen_s = time.perf_counter() - t0
+    got = dict(ops.LAUNCHES)
+    launches.update(got)
+    if got["topk_ed"] == 0:
+        fail(f"{name}: mesh_topk_candidates launched no topk_ed")
+    nv, nrows = _rerank_slate(qs, series_v, rows, K)
+    sel = torch.from_numpy(gids_v[nrows]).to(DEVICE)
+    bad = sel != want
+    if bool(bad.any()):  # exact f64 ties may swap
+        tie = torch.gather(full, 1, sel.clamp_min(0)) == torch.gather(full, 1, want)
+        if bool((bad & ~tie).any()):
+            fail(f"{name}: mesh_topk_candidates over the build's valid entries, "
+                 "re-ranked in f64, differs from the brute force")
+    log(f"{name}: mesh_topk_candidates over the {series_v.shape[0]} valid entries in "
+        f"{screen_s * 1e3:.1f} ms, launches {got}; re-ranked in f64: the brute force's "
+        f"top {K}")
+    summary["build"] = {"seconds": build_s, "query_ms": query_s * 1e3,
+                        "recall_at_k": recall, "max_rel_d2_err": err,
+                        "ids_differing_from_plain": int(differ.sum()),
+                        "zero_bound_share": zero_share, "edge_symbol_share": edge_share,
+                        "query_edge_symbol_share": q_edge,
+                        "mesh_screen_ms": screen_s * 1e3}
+    del X, full, want, series_v
+    distributed.teardown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["launches"] = dict(launches)
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"mesh: phase {summary['phase_seconds']:.1f}s (serving {wall:.1f}s), "
+        f"launches {dict(launches)}")
+    top = max((c, key) for key, c in mesh_shapes.items() if key[0] == "topk_ed")[1]
+    return launches, summary, top
 
 
 # ------------------------------------------------------------ the gateway
@@ -2047,15 +2349,31 @@ def main() -> int:
     got, summary["exact-f32-file"] = phase_file_storage(torch, ops, serve, engine,
                                                         shapes, model_served)
     launches.update(got)
-    del model_served
     log("file storage: ms/query p50/p95 {:.4f}/{:.4f} against the model backend's "
         "{:.4f}/{:.4f}".format(summary["exact-f32-file"]["p50_ms_per_query"],
                                summary["exact-f32-file"]["p95_ms_per_query"],
                                summary["exact-f32"]["p50_ms_per_query"],
                                summary["exact-f32"]["p95_ms_per_query"]))
+    got, summary["mesh"], mesh_topk = phase_mesh(torch, ops, ref, serve, engine,
+                                                   model_served)
+    launches.update(got)
+    del model_served
+    log("mesh: ms/query p50/p95 {:.4f}/{:.4f} against the single-device engine's "
+        "{:.4f}/{:.4f}".format(summary["mesh"]["serve"]["p50_ms_per_query"],
+                               summary["mesh"]["serve"]["p95_ms_per_query"],
+                               summary["exact-f32"]["p50_ms_per_query"],
+                               summary["exact-f32"]["p95_ms_per_query"]))
     for key, c in shapes.most_common(16):
         log(f"main path: call {key} x{c}")
     entries = phase_timing(torch, ops, ref, shapes, worst) + history_entries
+    # topk_ed at the mesh path's own shape (logged)
+    case, shape = new_kernel_case(torch, ops, ref, mesh_topk,
+                                  torch.Generator(device=DEVICE).manual_seed(2))
+    worst["topk_ed"] = max(worst["topk_ed"], case_error(torch, case))
+    log(f"timing: topk_ed at the mesh path's shape {shape}: "
+        + timing_text(time_case(torch, case), *case.bound()))
+    del case
+    torch.cuda.empty_cache()
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["max_abs_err"] = worst[e["name"]]

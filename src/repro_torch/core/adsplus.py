@@ -455,8 +455,8 @@ class ADSIndex:
         The iSAX leaves traverse through the same executor as every
         Coconut run — shared verification passes for the whole batch, with
         adaptive leaves splitting on first touch (``refine``). Unfilled
-        slots are (inf, -1). ``shard="mesh"`` raises until the mesh path is
-        ported."""
+        slots are (inf, -1). ``shard="mesh"`` executes the plan on the
+        device mesh."""
         Q = np.asarray(Q, np.float32)
         plan = self.plan(Q, tier="exact", raw=raw, window=window)
         (vals, gids), stats = execute(plan, Q, k, backend=backend, shard=shard,

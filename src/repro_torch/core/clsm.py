@@ -226,7 +226,8 @@ class CLSM:
         if all(c.ts is not None for c in chunks):
             ts = np.concatenate([c.ts for c in chunks])
         return DenseSource(
-            ops=SourceOps(ids=ids, ts=ts, fetch=lambda p, s=series: s[p]),
+            ops=SourceOps(ids=ids, ts=ts, fetch=lambda p, s=series: s[p],
+                          device=self.device),
             n=series.shape[0],
         )
 
@@ -302,8 +303,9 @@ class CLSM:
         warm) until the pin drops, and the answers are snapshot-consistent
         — brute force over the pinned epoch's entries, whatever ingest
         publishes meanwhile. ``time_skip=False`` keeps entry-level window
-        filtering but probes every run (PP). ``shard="mesh"`` raises until
-        the mesh path is ported. Returns ((m, k) d2, (m, k) ids, stats)."""
+        filtering but probes every run (PP). ``shard="mesh"`` executes the
+        plan on the device mesh (queries x runs 2-D, ``core.distributed``).
+        Returns ((m, k) d2, (m, k) ids, stats)."""
         Q = np.asarray(Q, np.float32)
         with self._pinned(snapshot) as snap:
             plan = self.plan(Q, tier="exact", raw=raw, window=window,

@@ -809,7 +809,8 @@ class CTree:
                 fetch = lambda p, s=series: s[p]
             else:
                 fetch = lambda p, i=pids: raw.fetch(i[p])
-            out.append(DenseSource(ops=SourceOps(ids=pids, ts=ts, fetch=fetch),
+            out.append(DenseSource(ops=SourceOps(ids=pids, ts=ts, fetch=fetch,
+                                                 device=self.device),
                                    n=len(pids)))
         return out
 
@@ -855,7 +856,8 @@ class CTree:
         """Batched exact kNN: ((m, k) d2 ascending, (m, k) ids), stats.
 
         Unfilled slots (fewer than k in-window entries) are (inf, -1).
-        ``shard="mesh"`` raises until the mesh path is ported."""
+        ``shard="mesh"`` executes on the device mesh (queries x runs 2-D,
+        ``core.distributed``) with host f64 re-ranking — same answers."""
         Q = np.asarray(Q, np.float32)
         plan = self.plan(Q, tier="exact", raw=raw, window=window)
         (vals, gids), stats = execute(plan, Q, k, backend=backend, shard=shard,

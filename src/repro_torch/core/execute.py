@@ -27,8 +27,12 @@ Scalar queries are batch-of-1 plans: ``knn_exact``/``knn_approx`` on every
 index build the same plan as their batched twins and convert the (1, k)
 state row to the historical [(d2, id)] list.
 
-``shard="mesh"`` (the exact tier over a device mesh) raises until the
-mesh and distributed modules are ported (ROADMAP Queue 1 item 9).
+``shard="mesh"`` executes the exact tier on a device mesh
+(:mod:`repro_torch.core.distributed`): the query batch is sharded over one
+mesh axis and the planned sources (runs) over the other, each rank screens
+its tile with one ``topk_ed`` launch, the per-shard slates fold with one
+``all_gather``, and the host re-ranks the survivors in f64 and certifies
+them, so mesh answers match the single-device engine.
 """
 from __future__ import annotations
 
@@ -50,9 +54,6 @@ from .plan import (
 from .summarization import paa
 
 BACKENDS = ("device", "numpy", "kernel")
-
-_MESH_MISSING = ('shard="mesh" is not ported yet (ROADMAP Queue 1 item 9, '
-                 "mesh and distributed)")
 
 
 # ---------------------------------------------------------------------------
@@ -312,15 +313,13 @@ def execute(
     batch); ``entries_pruned`` counts window filtering + the entry-level
     MINDIST screen.
 
-    ``shard="mesh"`` raises ``NotImplementedError`` until the mesh and
-    distributed modules are ported.
+    ``shard="mesh"``: execute the exact tier as a dense device-mesh scan
+    (``_execute_mesh``) — same answers as the single-device engine.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown batch verify backend {backend!r}")
     if shard not in (None, "none", "mesh"):
         raise ValueError(f"unknown shard mode {shard!r}")
-    if shard == "mesh":
-        raise NotImplementedError(_MESH_MISSING)
     Q = np.asarray(Q, np.float32)
     m = Q.shape[0]
     stats = stats if stats is not None else QueryStats()
@@ -331,6 +330,8 @@ def execute(
     stats.blocks_pruned += plan.pruned_blocks * m  # run-level temporal skips
     if m == 0:
         return (vals, ids), stats
+    if shard == "mesh":
+        return _execute_mesh(plan, Q, k, vals, ids, stats, mesh)
     for src in plan.sources:
         if isinstance(src, DenseSource):
             vals, ids = _exec_dense(src, plan, Q, k, vals, ids)
@@ -654,3 +655,95 @@ def _exec_group(src: GroupSource, plan, Q, k, vals, ids, stats, backend):
         mv, mi = merge_topk_state(vals[qidx], ids[qidx], nv, gi)
         vals[qidx], ids[qidx] = mv, mi
     return vals, ids
+
+
+# ---------------------------------------------------------------------------
+# mesh-sharded execution (queries x runs 2-D parallelism)
+# ---------------------------------------------------------------------------
+def _execute_mesh(plan, Q, k, vals, ids, stats, mesh):
+    """Exact batched kNN as a dense device-mesh scan over the plan.
+
+    Every planned source's in-window entries are gathered (fetch closures
+    account the modeled I/O of the scan) and screened on the mesh — the
+    query batch sharded over the first mesh axis, the source entries over
+    the second — then the per-shard slates fold with one ``all_gather``
+    and the host re-ranks the survivors in f64, so results match the
+    single-device executor. The mesh is ``mesh``, else the default mesh of
+    the sources' device. The approximate tier stays host-side where the
+    seek/coalesce I/O model is meaningful. Every rank takes the same early
+    returns, as every rank holds the same plan.
+    """
+    from .distributed import mesh_topk_candidates
+
+    m = Q.shape[0]
+    chunks_data, chunks_ids = [], []
+    device = None
+    for src in plan.sources:
+        if isinstance(src, DenseSource):
+            pos = np.arange(src.n)
+        elif isinstance(src, BlockSource):
+            pos = (
+                np.concatenate(src.blocks)
+                if src.blocks
+                else np.zeros((0,), np.int64)
+            )
+            stats.blocks_visited += len(src.blocks) * m
+        else:
+            raise ValueError(
+                "shard='mesh' executes the exact tier only (block/dense sources)"
+            )
+        if device is None:
+            device = src.ops.device
+        win = window_mask(src.ops.ts, plan.window, pos)
+        if win is not None:
+            stats.entries_pruned += int((~win).sum())
+            pos = pos[win]
+        if pos.size == 0:
+            continue
+        chunks_data.append(src.ops.fetch(pos))
+        chunks_ids.append(src.ops.ids[pos])
+        stats.entries_verified += int(pos.size)
+    if not chunks_data:
+        return (vals, ids), stats
+    X = np.concatenate(chunks_data)
+    gids_all = np.concatenate(chunks_ids)
+    c = X.shape[0]
+    ksel = min(k + 8, c)  # slack absorbs f32 near-tie reordering
+    # Center the table before the f32 device screen: squared ED is
+    # translation-invariant, and removing the common offset kills the
+    # |x|^2 - 2<q, x> cancellation that would otherwise scramble the f32
+    # ranking for large-magnitude series.
+    mu = X.mean(axis=0)
+    d2s, rows = mesh_topk_candidates(Q - mu, X - mu, ksel, mesh=mesh,
+                                     device=device if device is not None else "cuda")
+    nv, nrows = _rerank_slate(Q, X, rows, k)
+    # Certify the screen: any candidate outside the slate has f32 screen
+    # distance >= the slate's worst, hence true distance >= worst - 2*bound
+    # (classical f32 matmul error, the _screen_topk_exact bound). Queries
+    # whose f64-re-ranked kth distance does not clear that margin — or with
+    # unfillable slate slots — fall back to the provably exact host screen
+    # over the gathered table, so mesh answers match the single-device
+    # engine on every input, not just well-conditioned ones.
+    if ksel < c:
+        qn = np.sqrt(np.einsum("mn,mn->m", Q - mu, Q - mu, dtype=np.float64))
+        xn_max = float(np.sqrt(np.einsum("cn,cn->c", X - mu, X - mu,
+                                         dtype=np.float64).max()))
+        bound = 4.0 * X.shape[1] * np.finfo(np.float32).eps * qn * xn_max
+        kth = nv[:, min(k, nv.shape[1]) - 1] if nv.shape[1] else np.zeros(m)
+        certified = (rows >= 0).all(axis=1) & (
+            np.where(np.isfinite(kth), kth, 0.0)
+            <= d2s[:, -1] - 2.0 * bound
+        )
+        bad = np.nonzero(~certified)[0]
+        if bad.size:
+            ev, er = _screen_topk_exact(Q[bad], X, k)
+            pad = nv.shape[1] - ev.shape[1]
+            if pad > 0:
+                ev = np.concatenate(
+                    [ev, np.full((bad.size, pad), np.inf, ev.dtype)], axis=1)
+                er = np.concatenate(
+                    [er, np.full((bad.size, pad), -1, er.dtype)], axis=1)
+            nv[bad], nrows[bad] = ev, er
+    gi = np.where(nrows >= 0, gids_all[np.maximum(nrows, 0)], -1)
+    vals, ids = merge_topk_state(vals, ids, nv, gi)
+    return (vals, ids), stats

@@ -29,7 +29,7 @@ Scalar ``window_knn`` is a batch-of-1 plan; concurrent traffic goes
 through ``window_knn_batch`` / ``window_knn_approx_batch``, which answer a
 whole (m, n) query batch with one shared verification pass per (run,
 batch) and return ((m, k) distances, (m, k) ids, stats). Exact batches
-accept ``shard="mesh"``, which raises until the mesh path is ported.
+accept ``shard="mesh"`` for device-mesh execution.
 
 ``ingest="async"`` moves the flush/external-sort/merge work onto a
 background :class:`repro_torch.core.ingest.IngestPipeline` worker: ``ingest``

@@ -15,8 +15,9 @@ default raises). ``--storage file --storage-dir DIR`` keeps the index in
 crash-consistent files under DIR (raw rows, mmap'd runs, a write-ahead log
 and a manifest); serving the same DIR again, or
 ``StreamingIndex.recover(cfg, DIR)``, reopens what was made durable.
-``--mode lm`` and ``--shard mesh`` are refused at parse time until their
-parts are ported.
+``--shard mesh`` answers the exact tier on the device mesh
+(``core.distributed``). ``--mode lm`` is refused at parse time until its
+part is ported.
 """
 from __future__ import annotations
 
@@ -43,6 +44,13 @@ def serve_coconut(args) -> dict:
     is the approximate tier's recall knob. Approximate recall@k vs the
     exact oracle is measured on every served batch.
 
+    ``--shard mesh`` executes the exact tier on the device mesh
+    (``core.distributed``): the query batch sharded over one mesh axis and
+    the window's entries over the other, one ``topk_ed`` launch a tile, the
+    per-shard slates folded with one ``all_gather`` — answers are identical
+    to the single-device engine (host f64 re-rank). Without a process
+    group the mesh is one rank on ``--device`` (NCCL on a card).
+
     ``--ingest async`` moves flush/merge work onto the background ingest
     pipeline: queries serve from pinned epoch snapshots while compactions
     publish concurrently, and the per-batch log line reports the freshness
@@ -62,6 +70,7 @@ def serve_coconut(args) -> dict:
     stats, the measured I/O (empty under the model backend) and the index
     itself for callers that check the answers."""
     tier = "approx" if args.approx else args.tier
+    shard = args.shard if args.shard != "none" else None
     device = getattr(args, "device", "cuda")
     scfg = SummarizationConfig(series_len=args.series_len, n_segments=16,
                                card_bits=8)
@@ -101,7 +110,7 @@ def serve_coconut(args) -> dict:
                     qs, t0b, t1b, k=args.k, n_blocks=args.n_blocks)
             else:
                 got_d2, got_ids, _ = idx.window_knn_batch(qs, t0b, t1b,
-                                                          k=args.k)
+                                                          k=args.k, shard=shard)
             dt = (time.perf_counter() - t0) / args.query_batch
             lat.append(dt)
             served.append((b, t0b, t1b, qs, got_ids, got_d2))
@@ -111,7 +120,8 @@ def serve_coconut(args) -> dict:
             bhist = ",".join(f"{mb}:{c}" for mb, c in
                              sorted(es["batch_hist"].items()))
             line = (f"[serve] batch {b+1}: {args.query_batch} queries "
-                    f"({tier}), {dt*1e3:.2f} ms/query, "
+                    f"({tier}{'+mesh' if shard == 'mesh' else ''}), "
+                    f"{dt*1e3:.2f} ms/query, "
                     f"partitions={idx.n_partitions}, "
                     f"calls={es['calls']}, fallbacks={es['fallbacks']}, "
                     f"traces={es['traces']}, hits={es['hits']}, "
@@ -338,8 +348,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="approx tier: adjacent blocks read per (query, run) "
                          "— the recall vs I/O knob")
     ap.add_argument("--shard", default="none", choices=["none", "mesh"],
-                    help="exact tier execution: single-device (mesh is not "
-                         "ported yet)")
+                    help="exact tier execution: single-device or the device "
+                         "mesh (queries x runs 2-D over torch.distributed)")
     ap.add_argument("--ingest", default="sync", choices=["sync", "async"],
                     help="sync: flush/merge inline on the serving thread; "
                          "async: background ingest pipeline (queries never "
@@ -397,11 +407,13 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    # refuse what is not ported yet at parse time, not mid-batch
+    # reject impossible flag combinations at parse time, not mid-batch
+    if args.shard == "mesh" and (args.approx or args.tier == "approx"):
+        ap.error("--shard mesh serves the exact tier only (the approx "
+                 "tier's seek/coalesce I/O model is host-side)")
+    # refuse what is not ported yet, at the same point
     if args.mode != "coconut":
         ap.error("--mode lm is not ported yet (ROADMAP Queue 1 item 12)")
-    if args.shard == "mesh":
-        ap.error("--shard mesh is not ported yet (ROADMAP Queue 1 item 9)")
     if args.gateway:
         serve_gateway(args)
     else:

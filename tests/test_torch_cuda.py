@@ -710,3 +710,86 @@ def test_file_backed_index_answers_as_the_model_backed_one(cuda, tmp_path):
             np.testing.assert_array_equal(a[1], b[1])
             np.testing.assert_array_equal(a[0], b[0])
     rec.close()
+
+
+# ---------------------------------------------------------------------------
+# the mesh and distributed module on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def nccl_mesh(cuda):
+    """The one-rank NCCL group ``core.distributed`` makes, torn down after."""
+    from repro_torch.core import distributed
+
+    yield distributed
+    distributed.teardown()
+
+
+def _plain_ops(monkeypatch):
+    """The kernel wrappers the distributed module calls, replaced by their
+    plain versions (on the same card tensors)."""
+    monkeypatch.setattr(ops, "paa", lambda x, cfg: ref.paa_ref(x, cfg.n_segments))
+    monkeypatch.setattr(ops, "sax_and_keys", lambda p, cfg: ref.sax_pack_ref(
+        p, ops.breakpoint_table(cfg.card_bits, p.device), cfg.card_bits, cfg.key_words))
+    monkeypatch.setattr(ops, "mindist", lambda q, lo, hi, cfg: ref.mindist_ref(
+        q, lo, hi, cfg.segment_len))
+    monkeypatch.setattr(ops, "topk_ed", lambda q, x, k: ref.topk_ed_ref(q, x, min(k, x.shape[0])))
+
+
+def test_cuda_mesh_topk_candidates_matches_plain_and_the_f64_answer(nccl_mesh,
+                                                                    monkeypatch):
+    """On one card the default mesh is (1, 1) on NCCL: one topk_ed launch
+    screens the batch; the slate holds the plain version's (ids equal but
+    for near ties) and its f64 re-rank is the brute force's top 5."""
+    import torch.distributed as dist
+
+    from repro_torch.core.execute import _rerank_slate
+
+    rng = np.random.default_rng(12)
+    X = rng.standard_normal((70_001, 128)).astype(np.float32).cumsum(axis=1)
+    Q = X[rng.integers(0, X.shape[0], 16)] + rng.standard_normal((16, 128)).astype(
+        np.float32)
+    mu = X.mean(axis=0)
+    mesh = nccl_mesh.default_batch_mesh()
+    assert dist.get_backend() == "nccl" and tuple(mesh.mesh.shape) == (1, 1)
+    ops.reset_launches()
+    d2, rows = nccl_mesh.mesh_topk_candidates(Q - mu, X - mu, 13)
+    assert ops.LAUNCHES["topk_ed"] == 1 and d2.shape == rows.shape == (16, 13)
+    with monkeypatch.context() as m:
+        _plain_ops(m)
+        pd2, prows = nccl_mesh.mesh_topk_candidates(Q - mu, X - mu, 13)
+    assert (rows != prows).mean() < 0.01
+    np.testing.assert_allclose(d2, pd2, rtol=1e-4, atol=1e-3 * float(np.abs(pd2).max()))
+    nv, nrows = _rerank_slate(Q, X, rows, 5)
+    bf = ((X[None].astype(np.float64) - Q[:, None]) ** 2).sum(-1)
+    np.testing.assert_array_equal(nrows, np.argsort(bf, axis=1, kind="stable")[:, :5])
+
+
+def test_cuda_distributed_build_and_query_match_plain(nccl_mesh, monkeypatch):
+    """The build (paa + sax_pack kernels) and the query (paa + one mindist
+    launch a query) on a one-rank NCCL mesh equal, bit for bit, the same
+    path through the plain versions on the card; the build is globally
+    sorted and drops nothing."""
+    from repro_torch.core import SummarizationConfig
+
+    rng = np.random.default_rng(13)
+    X = rng.standard_normal((20_000, 256)).astype(np.float32).cumsum(axis=1)
+    Q = rng.standard_normal((4, 256)).astype(np.float32).cumsum(axis=1)
+    cfg = nccl_mesh.DistBuildConfig(SummarizationConfig(256, 16, 8))
+    mesh = nccl_mesh.make_mesh((1,), ("data",))
+    build = nccl_mesh.make_build_fn(mesh, ("data",), cfg)
+    query = nccl_mesh.make_query_fn(mesh, ("data",), cfg, k=5, verify_budget=512)
+    ops.reset_launches()
+    got = build(X, np.arange(X.shape[0]))
+    assert ops.LAUNCHES["paa"] == 1 and ops.LAUNCHES["sax_pack"] == 1
+    d2, ids = query(got, Q)
+    assert ops.LAUNCHES["paa"] == 2 and ops.LAUNCHES["mindist"] == Q.shape[0]
+    with monkeypatch.context() as m:
+        _plain_ops(m)
+        want = build(X, np.arange(X.shape[0]))
+        wd2, wids = query(want, Q)
+    assert int(got["overflow"]) == 0 and int(got["n_valid"].sum()) == X.shape[0]
+    for name, t in got.items():
+        assert torch.equal(t, want[name]), name
+    assert torch.equal(d2, wd2) and torch.equal(ids, wids)
+    keys = got["keys"][got["invalid"] == 0].cpu().numpy()
+    assert (np.lexsort(keys.T[::-1]) == np.arange(keys.shape[0])).all()

@@ -25,7 +25,8 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     names = _modules()
     for name in ("core.verify_engine", "core.adsplus", "kernels.ops",
                  "kernels.ref", "kernels._build", "launch.serve",
-                 "core.recommender", "core.autotune", "core.gateway"):
+                 "core.recommender", "core.autotune", "core.gateway",
+                 "core.distributed"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"

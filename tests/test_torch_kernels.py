@@ -1005,9 +1005,12 @@ SUMMARIZE_CU = Path(ops.__file__).resolve().parent / "csrc" / "summarize.cu"
 
 
 def _summarize_constants():
-    """The ``constexpr int`` constants of the summarize source."""
-    return {k: int(v) for k, v in
-            re.findall(r"constexpr int (\w+) = (\d+);", SUMMARIZE_CU.read_text())}
+    """The ``constexpr int`` constants of the summarize source, products
+    and quotients of integer literals evaluated as C does (left to
+    right, integer division)."""
+    return {k: eval(v.replace("/", "//"), {"__builtins__": {}})  # digits and * / only
+            for k, v in re.findall(r"constexpr int (\w+) = ([\d */]+);",
+                                   SUMMARIZE_CU.read_text())}
 
 
 def _sax_rows_per_sub(w, threads):
@@ -1191,3 +1194,163 @@ def test_sax_pack_plan_fits_every_width():
                 assert -32 < at < 32 and 0 <= j < 8 and 0 < pieces < 64
                 assert _unpack_task(_pack_task(plane, lane0, at, j, pieces)) == (
                     plane, lane0, at, j, pieces)
+
+
+# ---------------------------------------------------------------------------
+# paa's layout (csrc/summarize.cu paa_kernel): rows staged in shared memory,
+# each segment padded by one float, one thread per (row, segment) summing
+# left to right; series too long to stage summed from device memory
+# ---------------------------------------------------------------------------
+def _paa_plan(n, w):
+    """``coconut_paa``'s plan: (staged, rows a block, floats a staged row)."""
+    k = _summarize_constants()
+    row_floats = w * (n // w + 1)
+    if row_floats > k["PAA_SMEM_FLOATS"]:
+        return False, 0, row_floats
+    return True, min(k["PAA_MAX_ROWS"], k["PAA_SMEM_FLOATS"] // row_floats), row_floats
+
+
+def _emulate_paa(x, w):
+    """paa_kernel block by block on the CPU: the staged tile's padded layout
+    written element by element as the block's threads write it, then each
+    (row, segment) thread's left-to-right f32 sum and IEEE division; or
+    the unstaged kernel's one thread per (row, segment) over the batch."""
+    b, n = x.shape
+    L = n // w
+    threads = _summarize_constants()["PAA_THREADS"]
+    staged, rows, row_floats = _paa_plan(n, w)
+    out = np.full(b * w, np.nan, np.float32)
+    written = np.zeros(b * w, np.int64)
+
+    def seg_sum(vals):  # (E, L) -> (E,), the kernel's order and rounding
+        acc = vals[:, 0].copy()
+        for j in range(1, L):
+            acc = (acc + vals[:, j]).astype(np.float32)
+        return (acc / np.float32(L)).astype(np.float32)
+
+    if not staged:
+        grid = -(-b * w // threads)
+        for blk in range(grid):
+            e = blk * threads + np.arange(threads)
+            e = e[e < b * w]
+            out[e] = seg_sum(x.reshape(-1)[e[:, None] * L + np.arange(L)])
+            written[e] += 1
+        return out.reshape(b, w), written
+    for blk in range(-(-b // rows)):
+        row0 = blk * rows
+        nrows = min(rows, b - row0)
+        src = x[row0:row0 + nrows].reshape(-1)
+        tile = np.full(rows * row_floats, np.nan, np.float32)
+        for t in range(threads):  # each thread's strided share of the loads
+            e = np.arange(t, nrows * n, threads)
+            r, c = e // n, e % n
+            s, j = c // L, c % L
+            tile[(r * w + s) * (L + 1) + j] = src[e]
+        e = np.arange(nrows * w)  # the (row, segment) threads
+        out[row0 * w + e] = seg_sum(tile[e[:, None] * (L + 1) + np.arange(L)])
+        written[row0 * w + e] += 1
+    return out.reshape(b, w), written
+
+
+@pytest.mark.parametrize("b,n,w", [(1, 256, 16), (67, 256, 16), (300, 64, 8),
+                                   (45, 120, 8), (33, 96, 12), (5, 16384, 16)])
+def test_paa_emulation_matches_plain_and_pallas(b, n, w, rng):
+    """The kernel's layout, emulated on the CPU, gives the plain version's
+    PAA bit for bit, and the Pallas kernel's to f32 tolerance: every (row,
+    segment) written once, none of the tile's pad floats read. 67 and 45 rows end in a short
+    block; 15-value segments (n = 120) make the pad stride even; 16,384
+    values a row do not fit a block and take the unstaged kernel."""
+    from repro.kernels.paa_kernel import paa_pallas
+
+    x = rng.standard_normal((b, n)).astype(np.float32)
+    got, written = _emulate_paa(x, w)
+    assert (written == 1).all() and not np.isnan(got).any()
+    assert _paa_plan(n, w)[0] == (n < 12000)
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  ref.paa_ref(_t(x), w).numpy().view(np.uint32))
+    # the Pallas kernel's mean sums in its own order (test_paa_matches_reference)
+    np.testing.assert_allclose(
+        got, np.asarray(paa_pallas(jnp.asarray(x), w, block_b=b, interpret=True)),
+        rtol=1e-5, atol=1e-6)
+
+
+def test_paa_plan_fits_shared_memory_and_spreads_banks():
+    """Every staged plan holds at least one row and fits the 48 KB of
+    dynamic shared memory a launch may take without an attribute; the
+    padded layout gives every (row, segment, value) a slot of its own; and
+    where the padded stride L + 1 is odd, the 32 threads of a warp read 32
+    distinct banks at every step of their sums."""
+    k = _summarize_constants()
+    assert k["PAA_SMEM_FLOATS"] * 4 == 48 * 1024
+    for w in (1, 4, 8, 12, 16, 32, 64):
+        for L in range(1, 1100, 7):
+            staged, rows, row_floats = _paa_plan(w * L, w)
+            if not staged:
+                assert row_floats > k["PAA_SMEM_FLOATS"]
+                continue
+            assert 1 <= rows <= k["PAA_MAX_ROWS"] and rows * row_floats <= k["PAA_SMEM_FLOATS"]
+            slots = ((np.arange(rows * w)[:, None] * (L + 1)) + np.arange(L)).ravel()
+            assert np.unique(slots).size == slots.size and slots.max() < rows * row_floats
+            if (L + 1) % 2 and rows * w >= 32:
+                for j in (0, L - 1):
+                    assert np.unique((np.arange(32) * (L + 1) + j) % 32).size == 32
+
+
+# ---------------------------------------------------------------------------
+# mindist's layout (csrc/lower_bound.cu): one thread a region, float4 reads
+# of lo and hi where a row is whole 16-byte words
+# ---------------------------------------------------------------------------
+LOWER_BOUND_CU = Path(ops.__file__).resolve().parent / "csrc" / "lower_bound.cu"
+
+
+def _emulate_mindist(q, lo, hi, seg_len):
+    """mindist_kernel block by block: NTHREADS rows a block, each row's
+    segments in order (four at a time from float4 words when the wrapper
+    asks for the vector path), each max, square and sum rounded in f32."""
+    nthreads = int(re.search(r"constexpr int NTHREADS = (\d+);",
+                             LOWER_BOUND_CU.read_text()).group(1))
+    b, w = lo.shape
+    vec = w % 4 == 0  # the wrapper's test (torch allocations are aligned)
+    out = np.full(b, np.nan, np.float32)
+    written = np.zeros(b, np.int64)
+    zero = np.float32(0)
+    for blk in range(-(-b // nthreads)):
+        row = blk * nthreads + np.arange(nthreads)
+        row = row[row < b]
+        acc = np.zeros(row.size, np.float32)
+        words = lo[row].reshape(row.size, -1, 4) if vec else None
+        for s in range(w):
+            lv = words[:, s // 4, s % 4] if vec else lo[row, s]
+            d = np.maximum(np.maximum((lv - q[s]).astype(np.float32), zero),
+                           np.maximum((q[s] - hi[row, s]).astype(np.float32), zero))
+            acc = (acc + (d * d).astype(np.float32)).astype(np.float32)
+        out[row] = (np.float32(seg_len) * acc).astype(np.float32)
+        written[row] += 1
+    return out, written
+
+
+@pytest.mark.parametrize("b,w", [(1, 16), (300, 16), (257, 8), (1000, 12), (513, 6),
+                                 (40, 3)])
+def test_mindist_emulation_matches_plain_and_pallas(b, w, rng):
+    """The kernel's layout, emulated on the CPU, gives the plain version's
+    bounds bit for bit and the Pallas kernel's to 1e-5: every region written
+    once, over whole and short blocks, the vector path (w % 4 == 0) and the
+    scalar one, regions open to +-1e30 at the edges (the distributed
+    query's) and queries on the breakpoints."""
+    from repro.kernels.lb_kernel import mindist_pallas
+
+    cfg = psum.SummarizationConfig(series_len=w * 8, n_segments=w, card_bits=8)
+    sym = rng.integers(0, 256, (b, w)).astype(np.int64)
+    bps = psum.breakpoints(8).astype(np.float32)
+    lo = np.concatenate([[-1e30], bps]).astype(np.float32)[sym]
+    hi = np.concatenate([bps, [1e30]]).astype(np.float32)[sym]
+    q = rng.standard_normal(w).astype(np.float32)
+    q[: w // 2] = bps[rng.integers(0, bps.size, w // 2)]
+    got, written = _emulate_mindist(q, lo, hi, cfg.segment_len)
+    assert (written == 1).all() and (got >= 0).all()
+    plain = ref.mindist_ref(_t(q), _t(lo), _t(hi), cfg.segment_len).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), plain.view(np.uint32))
+    np.testing.assert_array_equal(got, ops.mindist(_t(q), _t(lo), _t(hi), cfg).numpy())
+    pallas = mindist_pallas(jnp.asarray(q), jnp.asarray(lo), jnp.asarray(hi),
+                            cfg.segment_len, block_b=b, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=1e-5)

@@ -238,10 +238,24 @@ def test_range_routing_equals_reference():
 
 
 def test_unported_backends_raise_and_unknown_names_error():
+    """``shard="mesh"`` (ported) answers like the default on a one-rank
+    mesh, whose group is torn down after; it takes the exact tier's block
+    and dense sources only. Unknown backends and shard modes raise."""
+    from repro_torch.core import distributed as pdist
+
     X, Q = _data(600), _queries(3)
     (_, _), (pct, praw) = _pair_ctree(X, True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        pct.knn_batch(Q, k=3, raw=praw, shard="mesh")
+    try:
+        want = pct.knn_batch(Q, k=3, raw=praw)
+        got = pct.knn_batch(Q, k=3, raw=praw, shard="mesh")
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        Qr, src, _ = _range_fixture(P)
+        with pytest.raises(ValueError, match="exact tier only"):
+            pex.execute(P.QueryPlan(m=Qr.shape[0], sources=[src]), Qr, 3,
+                        shard="mesh")
+    finally:
+        pdist.teardown()
     with pytest.raises(ValueError, match="backend"):
         pct.knn_batch(Q, k=3, raw=praw, backend="cuda")
     with pytest.raises(ValueError, match="shard"):

@@ -10,8 +10,10 @@ both loops query the same published runs and log the same modeled I/O:
 without the drain, what a query reads depends on how far the background
 worker has got, which neither package makes deterministic. The gateway
 loop (``--gateway``) keeps the reference's flags and defaults and runs at a
-tiny size on the CPU. Flags that are not ported yet are refused at parse
-time.
+tiny size on the CPU. ``--shard mesh`` serves the exact tier on a one-rank
+mesh, as the reference's loop does on one device. Flags that are not
+ported yet are refused at parse time, and so is ``--shard mesh`` with the
+approximate tier, in the reference's words.
 """
 import argparse
 import sys
@@ -93,17 +95,89 @@ def test_serve_coconut_serves_the_reference_ids(tier, ingest, dtype,
         assert len(lines) == 2 and lines[0] == lines[1]
 
 
+MESH_APPROX = "--shard mesh serves the exact tier only"
+
+
+def _reference_refusal(argv, monkeypatch, capsys):
+    """The reference's ``main`` on ``argv``: its parse-time error line."""
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    for loop in ("serve_coconut", "serve_gateway"):
+        monkeypatch.setattr(rserve, loop,
+                            lambda args: pytest.fail("the reference served"))
+    with pytest.raises(SystemExit):
+        rserve.main()
+    return capsys.readouterr().err.strip().splitlines()[-1]
+
+
 @pytest.mark.parametrize("argv,what", [
-    (["--mode", "lm"], "--mode lm"), (["--shard", "mesh"], "--shard mesh"),
-    (["--gateway", "--shard", "mesh"], "--shard mesh")])
+    (["--mode", "lm"], "--mode lm"),
+    (["--shard", "mesh", "--tier", "approx"], MESH_APPROX),
+    (["--shard", "mesh", "--approx"], MESH_APPROX)])
 def test_unported_flags_are_refused_at_parse_time(argv, what, monkeypatch,
                                                   capsys):
+    """``--mode lm`` waits for the LM substrate; ``--shard mesh`` with the
+    approximate tier is refused in the reference's own words."""
     for loop in ("serve_coconut", "serve_gateway"):
         monkeypatch.setattr(pserve, loop,
                             lambda args: pytest.fail("served an unported mode"))
     with pytest.raises(SystemExit):
         pserve.main(["--device", "cpu", *argv])
-    assert what in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert what in err
+    if what == MESH_APPROX:
+        line = err.strip().splitlines()[-1]
+        ref = _reference_refusal(argv, monkeypatch, capsys)
+        assert line.split("error: ", 1)[1] == ref.split("error: ", 1)[1]
+
+
+@pytest.mark.parametrize("argv,loop", [
+    (["--shard", "mesh"], "serve_coconut"),
+    (["--gateway", "--shard", "mesh"], "serve_gateway")])
+def test_shard_mesh_is_accepted_as_the_reference_accepts_it(argv, loop,
+                                                            monkeypatch):
+    """``--shard mesh`` reaches the serving loop in both packages; with
+    ``--gateway`` it reaches the gateway loop, which, as the reference's,
+    does not read the flag."""
+    for pkg in (pserve, rserve):
+        ran = []
+        for name in ("serve_coconut", "serve_gateway"):
+            monkeypatch.setattr(pkg, name,
+                                lambda args, _n=name: ran.append((_n, args)))
+        if pkg is pserve:
+            pserve.main(["--device", "cpu", *argv])
+        else:
+            monkeypatch.setattr(sys, "argv", ["serve", *argv])
+            rserve.main()
+        assert [n for n, _ in ran] == [loop]
+        assert ran[0][1].shard == "mesh"
+
+
+def test_serve_coconut_mesh_serves_the_reference_ids(monkeypatch, capsys):
+    """``--shard mesh`` on a one-rank mesh (the port's gloo group on the
+    CPU, torn down after): every exact window answer bit for bit the
+    reference's ``--shard mesh`` loop's and the port's single-device
+    loop's, and the log tags the tier ``+mesh``."""
+    from repro_torch.core import distributed as pdist
+
+    plog = _record(monkeypatch, pstream)
+    rlog = _record(monkeypatch, rstream)
+    args = _args("exact", "sync", "f32")
+    args.shard = "mesh"
+    try:
+        out = pserve.serve_coconut(args)
+    finally:
+        pdist.teardown()
+    assert "queries (exact+mesh)" in capsys.readouterr().out
+    ref_args = _args("exact", "sync", "f32")
+    ref_args.shard = "mesh"
+    rserve.serve_coconut(ref_args)
+    assert len(plog) == len(rlog) == 2
+    for (_, pt0, pt1, pv, pids), (_, rt0, rt1, rv, rids) in zip(plog, rlog):
+        assert (pt0, pt1) == (rt0, rt1)
+        np.testing.assert_array_equal(pids, rids)
+        np.testing.assert_array_equal(pv, rv)
+    single = pserve.serve_coconut(_args("exact", "sync", "f32"))
+    _assert_served_equal(_served(out), _served(single))
 
 
 @pytest.mark.parametrize("argv,loop", [
