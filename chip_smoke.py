@@ -77,7 +77,9 @@ Phases, each reported on lines of its own:
             library yardstick (used nowhere in the port) and the least time
             the card could take (its bound); paa and sax_pack also over the
             whole 1,024,000-series set, and topk_ed at the mesh phase's most
-            frequent shape (logged).
+            frequent shape (logged); and the launch floor, the device time
+            of a one-element elementwise kernel timed the same way (logged,
+            and in every kernel's entry).
 12. gateway: run after the serve phases (once the repeating events' index
             is freed) and before the timing phase. ``serve.py --gateway
             --autotune`` (``serve_gateway``, as the command line runs it) at
@@ -163,11 +165,42 @@ Phases, each reported on lines of its own:
             the build (centered), re-ranked in f64, must be the brute
             force's top 5. The group is torn down after. Logged: the wall
             time of each part and of the phase.
+15. lm-serve: run after the mesh phase and before the timing phase; no
+            Coconut kernel may launch in it (counts set to 0 at its start and
+            read at its end). (a) ``serve.main(["--mode", "lm", "--arch", A])``
+            on the card for the 8 archs whose ``serve_lm`` runs in the
+            reference: each ``[serve-lm]`` line parsed and logged, every
+            logit finite; llava-next-34b and hubert-xlarge must raise the
+            reference's KeyError ('patches', 'features': serve_lm passes
+            tokens only). (b) smollm-360m at full width (its CONFIG: 32
+            layers, d 960, 15 heads, 5 KV heads, hd 64, d_ff 2560, vocab
+            49,152; about 409M parameters, made on the card from a generator
+            seeded ``--seed``): 16 requests of 4,096 tokens from the same
+            generator, ``prefill`` with a cache of 4,096 + 32 slots (the auto
+            route takes flash attention, 4 q-chunks), 32 greedy
+            ``decode_step``s, timed. Fails unless every logit is finite; the
+            prefill's and decode steps 1, 16 and 32's logits equal those of
+            ``forward`` over prompt + generated tokens (4,128 tokens, naive
+            attention, 4 requests a forward) within 0.35 with the argmax equal
+            past twice that margin (LM_LOGIT_TOL); layer 0's flash attention
+            at 4,096 tokens is the auto route's output and within 4 x 2^-8
+            of the largest |v| of naive attention over the same q/k/v; the
+            last 4 steps, run again under the profiler from a rolled-back
+            cache, give the same logits; and one 128-token request gives the
+            same last-token logits on the card and, the weights moved there,
+            on the CPU (LM_LOGIT_TOL). Logged: prefill seconds, decode
+            ms/step and tok/s, peak memory of serving and of the check, the
+            busy share and device ops a step over the traced steps, each
+            difference, and the bounds from the code's shapes: the prefill's
+            operations over the dense bf16 rate, a decode step's bytes
+            (weights, the K and V caches over all their slots) over the HBM
+            rate.
 
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before the last line. f32 products run without TF32 throughout: the
-certificate bound holds only for true f32 arithmetic.
+certificate bound holds only for true f32 arithmetic. ``--seed`` (default 0)
+seeds the LM phase's weights and prompts.
 """
 from __future__ import annotations
 
@@ -296,6 +329,28 @@ STORE_FREE_BYTES = 4 << 30
 # entry it sends) and the distributed query's verification budget
 MESH_SLACK = 2.0
 MESH_VERIFY_BUDGET = 4096
+# LM phase: the archs whose serve_lm runs in the reference (the two with a
+# frontend raise its KeyError: serve_lm passes tokens only), and the
+# full-width run of serve.py's default arch
+LM_SERVE_ARCHS = ("rwkv6-3b", "smollm-360m", "gemma3-27b", "minicpm3-4b",
+                  "granite-20b", "granite-moe-1b-a400m", "deepseek-moe-16b",
+                  "recurrentgemma-9b")
+LM_FRONTEND_ARCHS = {"llava-next-34b": "patches", "hubert-xlarge": "features"}
+LM_ARCH = "smollm-360m"
+LM_BATCH = 16  # requests
+LM_PROMPT = 4096  # tokens a request: the flash route, 4 q-chunks
+LM_DECODE = 32  # greedy steps; the cache holds LM_PROMPT + LM_DECODE slots
+LM_CHECK_STEPS = (1, 16, 32)  # decode steps held to the full forward
+LM_FORWARD_ROWS = 4  # requests a forward of the check (naive attention at 4,128)
+LM_TRACE_STEPS = 4  # decode steps under the profiler
+LM_CPU_PROMPT = 128  # the request run on the card and on the CPU
+# logits, bf16 against bf16 along another path: tests/test_models.py's bound
+LM_LOGIT_TOL = 0.35
+# flash against naive attention over the same bf16 q/k/v: each rounds the
+# probabilities to bf16 once and the output once (2^-8 relative each), so 4
+# units of 2^-8 of the largest |v| bound their difference
+LM_FLASH_TOL_ULPS = 4 * 2.0 ** -8
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 (tensor cores), 700 W
 T_START = time.perf_counter()
 
 
@@ -2124,6 +2179,256 @@ def phase_pruning_front(torch, ops, ref, kept, ed2):
     return launches, summary, MindistCase(torch, ops, ref, qp[0].contiguous(), lo, hi, cfg)
 
 
+def lm_bounds(cfg, batch, prompt, cache_len, weight_bytes, embed_bytes):
+    """The least times of the LM path on the card, from its shapes: the
+    prefill's operations (the layers' matmuls over every token, causal flash
+    attention's score and value products over the q-chunks it runs, the LM
+    head on the last token) over the dense bf16 rate, and the bytes a
+    decode step moves (every weight but the embedding table, a row of it a
+    request, the K and V caches over all their slots, as decode_attention
+    reads them, the logits written) over the HBM rate."""
+    d, h, kv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.d_ff
+    per_token = d * h * hd + 2 * d * kv * hd + h * hd * d + 3 * d * f
+    layer_flops = 2.0 * batch * prompt * per_token
+    qc = min(1024, prompt)
+    nq = prompt // qc
+    attn_flops = 4.0 * batch * h * hd * qc * qc * nq * (nq + 1) / 2
+    head_flops = 2.0 * batch * d * cfg.vocab_padded
+    flops = cfg.n_layers * (layer_flops + attn_flops) + head_flops
+    kv_bytes = 2 * cfg.n_layers * batch * cache_len * kv * hd * 2
+    step_bytes = (weight_bytes - embed_bytes + batch * d * 2 + kv_bytes
+                  + batch * cfg.vocab_padded * 4)
+    return {"prefill_tflop": flops / 1e12,
+            "prefill_layer_tflop": cfg.n_layers * layer_flops / 1e12,
+            "prefill_attention_tflop": cfg.n_layers * attn_flops / 1e12,
+            "prefill_bound_ms": flops / BF16_FLOP_PER_S * 1e3,
+            "decode_step_gb": step_bytes / 1e9, "kv_cache_gb": kv_bytes / 1e9,
+            "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def logits_check(torch, cfg, got, want, what, tol=LM_LOGIT_TOL):
+    """max |got - want| over the vocabulary within ``tol``, and the argmax
+    equal wherever ``want``'s top-1/top-2 margin exceeds twice it."""
+    got, want = got[..., :cfg.vocab].float(), want[..., :cfg.vocab].float()
+    err = float((got - want).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * tol
+    agree = got.argmax(-1) == want.argmax(-1)
+    if err > tol or not bool(agree[sure].all()):
+        fail(f"{what}: max |delta logit| {err:.4f} (bound {tol}), argmax differs at "
+             f"{int((sure & ~agree).sum())} of {int(sure.sum())} positions past the margin")
+    return err
+
+
+def phase_lm_serve(torch, ops, serve, seed):
+    """``serve.py --mode lm`` on the card for every arch the reference serves,
+    then the LM path at the full width of serve.py's default arch
+    (docstring phase 15). Returns the phase's summary."""
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    from repro_torch.models.common import rms_norm, rope
+    from repro_torch.models.transformer import decode_step, forward, init_params, logits_fn, prefill
+
+    t_phase = time.perf_counter()
+    summary = {"serve": {}}
+    ops.reset_launches()
+
+    class Tee(io.StringIO):
+        """Keeps what it is given and passes it on to ``out``."""
+
+        def __init__(self, out):
+            super().__init__()
+            self.out = out
+
+        def write(self, text):
+            self.out.write(text)
+            return super().write(text)
+
+    # (a) the command line's LM mode, each arch's smoke config
+    pattern = re.compile(r"^\[serve-lm\] (\d+) tokens x batch (\d+): ([\d.]+) ms/step, "
+                         r"(\d+) tok/s$", re.M)
+    for arch in LM_SERVE_ARCHS:
+        buf = Tee(sys.stdout)
+        with contextlib.redirect_stdout(buf):
+            out = serve.main(["--mode", "lm", "--arch", arch])
+        m = pattern.search(buf.getvalue())
+        if m is None:
+            fail(f"lm-serve {arch}: no [serve-lm] line in {buf.getvalue()!r}")
+        if out["logits"].device.type != torch.device(DEVICE).type:
+            fail(f"lm-serve {arch}: the logits are not on the card")
+        if not bool(torch.isfinite(out["logits"]).all()):
+            fail(f"lm-serve {arch}: non-finite logits")
+        summary["serve"][arch] = {"ms_per_step": float(m.group(3)),
+                                  "tok_per_s": int(m.group(4))}
+        log(f"lm-serve {arch}: {m.group(0)}; logits {tuple(out['logits'].shape)} finite")
+    for arch, key in LM_FRONTEND_ARCHS.items():
+        try:
+            serve.main(["--mode", "lm", "--arch", arch])
+        except KeyError as exc:
+            if exc.args != (key,):
+                fail(f"lm-serve {arch}: KeyError{exc.args}, the reference raises KeyError('{key}')")
+            log(f"lm-serve {arch}: KeyError({key!r}), as the reference's serve_lm "
+                "(it passes tokens only)")
+        else:
+            fail(f"lm-serve {arch}: served; the reference's serve_lm raises KeyError('{key}')")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the full width of serve.py's default arch
+    cfg = get_config(LM_ARCH)
+    dev = torch.device(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if n_params != cfg.n_params():
+        fail(f"lm {LM_ARCH}: {n_params} parameters on the card, n_params() says {cfg.n_params()}")
+    log(f"lm {LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv} KV heads, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: {n_params:,} "
+        f"parameters, {weight_bytes / 1e9:.3f} GB, made on the card in "
+        f"{time.perf_counter() - t0:.2f}s")
+    B, P, T = LM_BATCH, LM_PROMPT, LM_DECODE
+    cache_len = P + T
+    toks = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    bounds = lm_bounds(cfg, B, P, cache_len, weight_bytes,
+                       model.embed.numel() * model.embed.element_size())
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, cfg, {"tokens": toks}, cache_len=cache_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    seen = [logits]
+    tok = logits.argmax(-1)[:, None]
+    generated = [tok]
+    t0 = time.perf_counter()
+    for _ in range(T):
+        logits, cache = decode_step(model, cfg, cache, tok)
+        tok = logits.argmax(-1)[:, None]
+        seen.append(logits)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    serve_peak = torch.cuda.max_memory_allocated()
+    seen = torch.stack(seen, 1)  # (B, 1 + T, V): the prefill's, then each step's
+    generated = torch.cat(generated, 1)  # (B, 1 + T)
+    if not bool(torch.isfinite(seen).all()):
+        fail(f"lm {LM_ARCH}: non-finite logits")
+    ms_step = decode_s / T * 1e3
+    log(f"lm {LM_ARCH}: {B} requests x {P} tokens: prefill {prefill_s:.4f}s "
+        f"(bound {bounds['prefill_bound_ms']:.2f} ms: {bounds['prefill_tflop']:.2f} TFLOP = "
+        f"{bounds['prefill_layer_tflop']:.2f} layers + {bounds['prefill_attention_tflop']:.2f} "
+        f"attention); {T} greedy steps {ms_step:.3f} ms/step, {B * T / decode_s:.1f} tok/s "
+        f"(bound {bounds['decode_bound_ms']:.4f} ms/step: {bounds['decode_step_gb']:.3f} GB "
+        f"a step, {bounds['kv_cache_gb']:.3f} of K and V); peak "
+        f"{serve_peak / 2**30:.3f} GiB; every logit finite")
+
+    # busy share over the last LM_TRACE_STEPS steps again: the cache rolled
+    # back, the same tokens fed (the slots are written with the same values)
+    from torch.profiler import ProfilerActivity, profile
+
+    cache["pos"] = P + T - LM_TRACE_STEPS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(T - LM_TRACE_STEPS, T):
+            again, cache = decode_step(model, cfg, cache, generated[:, i:i + 1])
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    busy = device_times(prof)
+    busy_s = sum(busy.values()) / 1e6
+    n_kernels = sum(e.count for e in prof.key_averages()
+                    if not str(getattr(e, "device_type", "")).endswith("CPU")
+                    and e.self_device_time_total > 0)
+    logits_check(torch, cfg, again, seen[:, T], f"lm {LM_ARCH}: the traced step {T} again")
+    top = ", ".join(f"{k[:40]} {us / 1e3:.2f} ms" for k, us in busy.most_common(4))
+    log(f"lm {LM_ARCH}: {LM_TRACE_STEPS} traced decode steps: device busy {busy_s:.5f}s of "
+        f"{traced_s:.5f}s (share {busy_s / traced_s:.4f}), {n_kernels / LM_TRACE_STEPS:.0f} "
+        f"device ops a step; most device time: {top}")
+
+    # decode against the full forward over prompt + generated tokens (naive
+    # attention at 4,128 tokens, a few requests at a time)
+    seq = torch.cat([toks, generated[:, :T]], 1)
+    at = [P - 1] + [P + i - 1 for i in LM_CHECK_STEPS]
+    errs = collections.defaultdict(float)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for r in range(0, B, LM_FORWARD_ROWS):
+            h = forward(model, cfg, {"tokens": seq[r:r + LM_FORWARD_ROWS]})[0]
+            want = logits_fn(model, cfg, h[:, at])
+            del h
+            for j, step in enumerate((0,) + LM_CHECK_STEPS):
+                errs[step] = max(errs[step], logits_check(
+                    torch, cfg, seen[r:r + LM_FORWARD_ROWS, step], want[:, j],
+                    f"lm {LM_ARCH}: {'prefill' if step == 0 else f'decode step {step}'} "
+                    f"against the forward, requests {r}-{r + LM_FORWARD_ROWS - 1}"))
+        check_peak = torch.cuda.max_memory_allocated()
+        log(f"lm {LM_ARCH}: decode against the forward over {P + T} tokens: max |delta "
+            "logit| " + ", ".join(f"{'prefill' if k == 0 else f'step {k}'} {v:.4f}"
+                                  for k, v in errs.items())
+            + f" (bound {LM_LOGIT_TOL}); the check's peak {check_peak / 2**30:.3f} GiB")
+
+        # flash against naive attention, layer 0's q/k/v at the prompt length
+        p0 = model.groups[0][0]
+        flash_err = flash_tol = 0.0
+        for r in range(0, B, LM_FORWARD_ROWS):
+            x = model.embed[toks[r:r + LM_FORWARD_ROWS]]
+            hin = rms_norm(x, p0.ln1, cfg.norm_eps)
+            b = hin.shape[0]
+            q = rope((hin @ p0.attn.wq).reshape(b, P, cfg.n_heads, cfg.hd), torch.arange(P, device=dev), cfg.rope_theta)
+            k = rope((hin @ p0.attn.wk).reshape(b, P, cfg.n_kv, cfg.hd), torch.arange(P, device=dev), cfg.rope_theta)
+            v = (hin @ p0.attn.wv).reshape(b, P, cfg.n_kv, cfg.hd)
+            routed = attention.gqa_attention(q, k, v, causal=True)
+            flash = attention.flash_attention(q, k, v, causal=True)
+            if not torch.equal(routed, flash):
+                fail(f"lm {LM_ARCH}: the auto route at {P} tokens is not the flash path")
+            naive = attention.naive_attention(q, k, v, causal=True)
+            flash_err = max(flash_err, float((flash.float() - naive.float()).abs().max()))
+            flash_tol = max(flash_tol, LM_FLASH_TOL_ULPS * float(v.float().abs().max()))
+            del x, hin, q, k, v, routed, flash, naive
+        if flash_err > flash_tol:
+            fail(f"lm {LM_ARCH}: flash against naive attention {flash_err:.5f} > {flash_tol:.5f}")
+        log(f"lm {LM_ARCH}: layer 0 at {P} tokens: flash (the auto route) against naive "
+            f"attention max |delta| {flash_err:.5f} (bound {flash_tol:.5f} = 4 x 2^-8 max|v|)")
+
+        # the card against the CPU: the same weights, one request
+        one = toks[:1, :LM_CPU_PROMPT]
+        card, _ = prefill(model, cfg, {"tokens": one})
+        card = card.cpu()
+        del cache, seen
+        model = model.to("cpu")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        host, _ = prefill(model, cfg, {"tokens": one.cpu()})
+        cpu_err = logits_check(torch, cfg, card, host,
+                               f"lm {LM_ARCH}: the card against the CPU, {LM_CPU_PROMPT} tokens")
+        log(f"lm {LM_ARCH}: one {LM_CPU_PROMPT}-token request, card against CPU: max |delta "
+            f"logit| {cpu_err:.4f} (bound {LM_LOGIT_TOL}; CPU prefill "
+            f"{time.perf_counter() - t0:.2f}s)")
+    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if launched:
+        fail(f"lm: the LM path launched Coconut kernels {launched}")
+    summary.update({
+        "arch": LM_ARCH, "params": n_params, "weight_gb": weight_bytes / 1e9,
+        "requests": B, "prompt": P, "decode_steps": T, "prefill_s": prefill_s,
+        "decode_ms_per_step": ms_step, "tok_per_s": B * T / decode_s,
+        "peak_gib": serve_peak / 2**30, "check_peak_gib": check_peak / 2**30,
+        "busy_share": busy_s / traced_s, "device_ops_per_step": n_kernels / LM_TRACE_STEPS,
+        "decode_vs_forward": {str(k): v for k, v in errs.items()},
+        "flash_vs_naive": flash_err, "flash_tol": flash_tol, "card_vs_cpu": cpu_err,
+        **bounds})
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"lm: phase {summary['phase_seconds']:.1f}s; no Coconut kernel launched on the LM path")
+    del model
+    gc.collect()
+    return summary
+
+
 def percentile(a, p):
     import numpy as np
 
@@ -2160,7 +2465,8 @@ def timed_entry(torch, case, shape, err, what=""):
 
 
 def phase_timing(torch, ops, ref, shapes, worst):
-    """Each kernel at the main path's most frequent shape."""
+    """Each kernel at the main path's most frequent shape; and the launch
+    floor. Returns (the kernels' entries, the floor in ms or None)."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(1)
     entries = []
@@ -2204,7 +2510,13 @@ def phase_timing(torch, ops, ref, shapes, worst):
                 + timing_text(time_case(torch, case, 20), *case.bound()))
         del case
         torch.cuda.empty_cache()
-    return entries
+    # the launch floor: a one-element elementwise kernel's device time, in
+    # the same trace-based timing (what a launch costs whatever it does)
+    one = torch.zeros(1, device=dev)
+    floor_ms, _ = kernel_device_ms(torch, lambda: one.add_(1.0), 50, ("elementwise_kernel",))
+    log(f"timing: launch floor (a one-element elementwise kernel, device trace) "
+        f"{floor_ms if floor_ms is None else f'{floor_ms:.4f}'} ms")
+    return entries, floor_ms
 
 
 def time_history_kernels(torch, ops, ref, kept, lb_case, worst):
@@ -2272,7 +2584,13 @@ def case_error(torch, case):
     return float(max((got[0] - want[0]).abs().max(), (got[1] - want[1]).abs().max()))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="smoke run of the port on one NVIDIA card")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the LM phase's weights and prompts")
+    args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's package is not under {SRC}: run from a checkout")
     import torch
@@ -2363,9 +2681,13 @@ def main() -> int:
                                summary["mesh"]["serve"]["p95_ms_per_query"],
                                summary["exact-f32"]["p50_ms_per_query"],
                                summary["exact-f32"]["p95_ms_per_query"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["lm"] = phase_lm_serve(torch, ops, serve, args.seed)
     for key, c in shapes.most_common(16):
         log(f"main path: call {key} x{c}")
-    entries = phase_timing(torch, ops, ref, shapes, worst) + history_entries
+    timed, floor_ms = phase_timing(torch, ops, ref, shapes, worst)
+    entries = timed + history_entries
     # topk_ed at the mesh path's own shape (logged)
     case, shape = new_kernel_case(torch, ops, ref, mesh_topk,
                                   torch.Generator(device=DEVICE).manual_seed(2))
@@ -2377,6 +2699,7 @@ def main() -> int:
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["max_abs_err"] = worst[e["name"]]
+        e["launch_floor_ms"] = floor_ms
     log(f"serve summary: {json.dumps(summary)}")
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 was switched on during the run")

@@ -16,8 +16,13 @@ crash-consistent files under DIR (raw rows, mmap'd runs, a write-ahead log
 and a manifest); serving the same DIR again, or
 ``StreamingIndex.recover(cfg, DIR)``, reopens what was made durable.
 ``--shard mesh`` answers the exact tier on the device mesh
-(``core.distributed``). ``--mode lm`` is refused at parse time until its
-part is ported.
+(``core.distributed``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+        --arch smollm-360m --device cpu
+
+``--mode lm`` runs a toy LM decode-serving loop (``serve_lm``: the smoke
+config of ``--arch``, random weights) through the transformer serving path.
 """
 from __future__ import annotations
 
@@ -25,12 +30,13 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from ..core import (
     StreamConfig, StreamingIndex, SummarizationConfig, recall_at_k,
     render_heatmap,
 )
-from ..core.verify_engine import get_engine
+from ..core.verify_engine import get_engine, resolve_device
 from ..data.synthetic import seismic
 
 
@@ -331,6 +337,47 @@ def serve_gateway(args) -> dict:
             "tuner": tuner, "engine": dict(engine.stats), "index": idx}
 
 
+def serve_lm(args) -> dict:
+    """Greedy decode serving of ``--arch``'s smoke config: random weights
+    from a generator seeded 0 on ``--device``, ``--query-batch`` prompts of
+    32 tokens from ``default_rng(0)``, one prefill with room for
+    ``--decode-tokens`` more, then that many greedy decode steps, timed.
+    Returns the config, the logits of the prefill and of every step, and
+    the generated tokens."""
+    from ..configs import get_config
+    from ..models.steps import make_decode_step
+    from ..models.transformer import init_params, prefill
+
+    device = resolve_device(getattr(args, "device", "cuda"))
+    cfg = get_config(args.arch, smoke=True)
+    params = init_params(cfg, torch.Generator(device).manual_seed(0), device)
+    rng = np.random.default_rng(0)
+    B, P = args.query_batch, 32
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, P)).astype(np.int32))
+    logits, cache = prefill(params, cfg, {"tokens": toks.to(device)},
+                            cache_len=P + args.decode_tokens)
+    step = make_decode_step(cfg)
+    seen = [logits]
+    tok = logits.argmax(-1)[:, None]
+    generated = [tok]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(args.decode_tokens):
+        logits, cache = step(params, cache, tok)
+        tok = logits.argmax(-1)[:, None]
+        seen.append(logits)
+        generated.append(tok)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    print(f"[serve-lm] {args.decode_tokens} tokens x batch {B}: "
+          f"{dt/args.decode_tokens*1e3:.1f} ms/step, "
+          f"{B*args.decode_tokens/dt:.0f} tok/s")
+    return {"cfg": cfg, "logits": torch.stack(seen),
+            "tokens": torch.cat(generated, dim=1)}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="coconut", choices=["coconut", "lm"])
@@ -401,6 +448,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-prewarm", dest="prewarm", action="store_false",
                     help="skip walking the pass ladder and building the "
                          "kernels at startup (the first batch pays the build)")
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--decode-tokens", type=int, default=32)
     return ap
 
 
@@ -411,13 +460,11 @@ def main(argv=None):
     if args.shard == "mesh" and (args.approx or args.tier == "approx"):
         ap.error("--shard mesh serves the exact tier only (the approx "
                  "tier's seek/coalesce I/O model is host-side)")
-    # refuse what is not ported yet, at the same point
     if args.mode != "coconut":
-        ap.error("--mode lm is not ported yet (ROADMAP Queue 1 item 12)")
+        return serve_lm(args)
     if args.gateway:
-        serve_gateway(args)
-    else:
-        serve_coconut(args)
+        return serve_gateway(args)
+    return serve_coconut(args)
 
 
 if __name__ == "__main__":

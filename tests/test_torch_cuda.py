@@ -793,3 +793,61 @@ def test_cuda_distributed_build_and_query_match_plain(nccl_mesh, monkeypatch):
     assert torch.equal(d2, wd2) and torch.equal(ids, wids)
     keys = got["keys"][got["invalid"] == 0].cpu().numpy()
     assert (np.lexsort(keys.T[::-1]) == np.arange(keys.shape[0])).all()
+
+
+# ------------------------------------------------------------- the LM path
+LM_DECODERS = ["rwkv6-3b", "smollm-360m", "gemma3-27b", "minicpm3-4b", "granite-20b",
+               "granite-moe-1b-a400m", "deepseek-moe-16b", "recurrentgemma-9b",
+               "llava-next-34b"]
+
+
+def _lm_batch(cfg, B, S, device):
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(device)}
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_vis_tokens, cfg.d_frontend)).astype(np.float32)).to(device)
+    return batch
+
+
+@pytest.mark.parametrize("arch", LM_DECODERS)
+def test_cuda_lm_decode_matches_forward(cuda, arch):
+    """Smoke size on the card: prefill 16 tokens, 3 decode steps, each
+    step's logits within the reference test's 0.35 of the forward's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import (decode_step, forward, init_params,
+                                                logits_fn, prefill)
+
+    cfg = get_config(arch, smoke=True)
+    model = init_params(cfg, torch.Generator(cuda).manual_seed(1), cuda)
+    B, S, P = 2, 24, 16
+    batch = _lm_batch(cfg, B, S, cuda)
+    h = forward(model, cfg, batch)[0]
+    off = cfg.n_vis_tokens if cfg.frontend == "vision" else 0
+    lg, cache = prefill(model, cfg, dict(batch, tokens=batch["tokens"][:, :P]))
+    errs = [float((lg - logits_fn(model, cfg, h[:, off + P - 1])).abs().max())]
+    for t in range(P, P + 3):
+        lg, cache = decode_step(model, cfg, cache, batch["tokens"][:, t:t + 1])
+        errs.append(float((lg - logits_fn(model, cfg, h[:, off + t])).abs().max()))
+    assert lg.device.type == cuda.type and bool(torch.isfinite(lg).all())
+    assert max(errs) < 0.35, errs
+
+
+@pytest.mark.parametrize("arch", LM_DECODERS)
+def test_cuda_lm_matches_cpu(cuda, arch):
+    """The same weights on the card and on the CPU: prefill's last-token
+    logits within 0.35, the argmax equal past twice that margin."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params, prefill
+
+    cfg = get_config(arch, smoke=True)
+    model = init_params(cfg, torch.Generator(cuda).manual_seed(2), cuda)
+    batch = _lm_batch(cfg, 2, 32, cuda)
+    card = prefill(model, cfg, batch)[0].cpu()
+    model = model.to("cpu")
+    host = prefill(model, cfg, {k: v.cpu() for k, v in batch.items()})[0]
+    card, host = card[:, :cfg.vocab], host[:, :cfg.vocab]
+    assert float((card - host).abs().max()) < 0.35
+    top2 = host.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 0.7
+    assert bool((card.argmax(-1) == host.argmax(-1))[sure].all())

@@ -26,7 +26,8 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     for name in ("core.verify_engine", "core.adsplus", "kernels.ops",
                  "kernels.ref", "kernels._build", "launch.serve",
                  "core.recommender", "core.autotune", "core.gateway",
-                 "core.distributed"):
+                 "core.distributed", "models.transformer", "models.weights",
+                 "configs"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -78,7 +79,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert StreamConfig().device == "cuda"
-    for argv in (["--batches", "1"], ["--gateway", "--batches", "1"]):
+    for argv in (["--batches", "1"], ["--gateway", "--batches", "1"],
+                 ["--mode", "lm"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(argv)
     # asked for explicitly, the CPU runs the plain versions
@@ -120,3 +122,16 @@ def test_every_kernel_source_is_built():
         p.name for p in (PKG / "kernels" / "csrc").glob("*.cu"))
     assert set(ops.LAUNCHES) == {"screen_select", "screen_select_quant",
                                  "topk_ed", "paa", "sax_pack", "min_ed", "mindist"}
+
+
+def test_the_lm_path_runs_no_library_attention_or_compiler():
+    """The model stack computes what the reference computes, with plain
+    torch ops: no fused attention of a library, no ``torch.compile``."""
+    found = []
+    for path in sorted((PKG / "models").glob("*.py")):
+        text = path.read_text()
+        for name in ("scaled_dot_product_attention", "torch.compile", "flash_attn",
+                     "xformers"):
+            if name in text:
+                found.append(f"{path.name}: {name}")
+    assert found == []

@@ -11,10 +11,13 @@ without the drain, what a query reads depends on how far the background
 worker has got, which neither package makes deterministic. The gateway
 loop (``--gateway``) keeps the reference's flags and defaults and runs at a
 tiny size on the CPU. ``--shard mesh`` serves the exact tier on a one-rank
-mesh, as the reference's loop does on one device. Flags that are not
-ported yet are refused at parse time, and so is ``--shard mesh`` with the
-approximate tier, in the reference's words.
+mesh, as the reference's loop does on one device, and is refused at parse
+time with the approximate tier, in the reference's words. ``--mode lm``
+serves each decoder arch's smoke config on the CPU and prints the
+reference's line; the two archs with a frontend raise the reference's
+``KeyError`` in both packages.
 """
+import re
 import argparse
 import sys
 
@@ -110,24 +113,64 @@ def _reference_refusal(argv, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--mode", "lm"], "--mode lm"),
     (["--shard", "mesh", "--tier", "approx"], MESH_APPROX),
     (["--shard", "mesh", "--approx"], MESH_APPROX)])
 def test_unported_flags_are_refused_at_parse_time(argv, what, monkeypatch,
                                                   capsys):
-    """``--mode lm`` waits for the LM substrate; ``--shard mesh`` with the
-    approximate tier is refused in the reference's own words."""
-    for loop in ("serve_coconut", "serve_gateway"):
+    """``--shard mesh`` with the approximate tier is refused in the
+    reference's own words."""
+    for loop in ("serve_coconut", "serve_gateway", "serve_lm"):
         monkeypatch.setattr(pserve, loop,
-                            lambda args: pytest.fail("served an unported mode"))
+                            lambda args: pytest.fail("served a refused mode"))
     with pytest.raises(SystemExit):
         pserve.main(["--device", "cpu", *argv])
     err = capsys.readouterr().err
     assert what in err
-    if what == MESH_APPROX:
-        line = err.strip().splitlines()[-1]
-        ref = _reference_refusal(argv, monkeypatch, capsys)
-        assert line.split("error: ", 1)[1] == ref.split("error: ", 1)[1]
+    line = err.strip().splitlines()[-1]
+    ref = _reference_refusal(argv, monkeypatch, capsys)
+    assert line.split("error: ", 1)[1] == ref.split("error: ", 1)[1]
+
+
+# the reference's serve_lm line, numbers aside
+LM_LINE = re.compile(r"^\[serve-lm\] (\d+) tokens x batch (\d+): "
+                     r"\d+\.\d ms/step, \d+ tok/s$")
+LM_ARCHS = ["rwkv6-3b", "smollm-360m", "gemma3-27b", "minicpm3-4b", "granite-20b",
+            "granite-moe-1b-a400m", "deepseek-moe-16b", "recurrentgemma-9b"]
+
+
+def test_lm_line_is_the_reference_line(capsys):
+    """The reference's ``serve_lm`` prints the line the port's pattern reads."""
+    rserve.serve_lm(argparse.Namespace(arch="granite-20b", query_batch=2,
+                                       decode_tokens=2))
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert LM_LINE.match(line).groups() == ("2", "2"), line
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_mode_serves_every_decoder_arch_on_the_cpu(arch, capsys):
+    """``--mode lm --device cpu``: prefill, 32 greedy steps, the reference's
+    line; finite logits and in-vocabulary tokens."""
+    out = pserve.main(["--mode", "lm", "--device", "cpu", "--arch", arch])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert LM_LINE.match(line).groups() == ("32", "16"), line
+    cfg = out["cfg"]
+    assert cfg.arch_id == f"{arch}-smoke"
+    assert out["logits"].shape == (33, 16, cfg.vocab_padded)
+    assert bool(torch.isfinite(out["logits"]).all())
+    assert out["tokens"].shape == (16, 33)
+    assert int(out["tokens"].max()) < cfg.vocab
+
+
+@pytest.mark.parametrize("arch,key", [("llava-next-34b", "patches"),
+                                      ("hubert-xlarge", "features")])
+def test_lm_mode_frontend_archs_raise_the_reference_key_error(arch, key):
+    """``serve_lm`` passes tokens only, and the frontend reads its own input:
+    both packages raise the same ``KeyError``."""
+    with pytest.raises(KeyError) as ref:
+        rserve.serve_lm(argparse.Namespace(arch=arch, query_batch=2, decode_tokens=2))
+    with pytest.raises(KeyError) as port:
+        pserve.main(["--mode", "lm", "--device", "cpu", "--arch", arch])
+    assert ref.value.args == port.value.args == (key,)
 
 
 @pytest.mark.parametrize("argv,loop", [
@@ -279,11 +322,10 @@ def _flags(ap):
 def test_parser_keeps_the_reference_flags(monkeypatch):
     """Flag for flag, the port's parser is the reference's: the same
     destinations, defaults, choices, types and actions. It adds
-    ``--device``; ``--arch`` and ``--decode-tokens`` (the LM mode's) wait
-    for the LM substrate."""
+    ``--device``."""
     ref, port = _flags(_reference_parser(monkeypatch)), _flags(pserve.build_parser())
     assert set(port) - set(ref) == {"--device"}
-    assert set(ref) - set(port) == {"--arch", "--decode-tokens"}
+    assert set(ref) - set(port) == set()
     for flag in set(ref) & set(port):
         r, p = ref[flag], port[flag]
         assert (p.option_strings, p.dest, p.default, p.choices, p.type,
