@@ -195,6 +195,43 @@ Phases, each reported on lines of its own:
             operations over the dense bf16 rate, a decode step's bytes
             (weights, the K and V caches over all their slots) over the HBM
             rate.
+16. lm-train: run after phase 15 and before the timing phase; no Coconut
+            kernel may launch in (a)-(c) (counts set to 0 at the start of
+            (a) and read at the end of (b); set to 0 again before (c), read
+            after). (a) ``train.main([..."--arch", A,
+            "--smoke", "--steps", "4", "--global-batch", "4", "--seq-len",
+            "64", "--grad-accum", "2", "--device", "cuda"])`` for all ten
+            archs, frontends included (the pipeline supplies patches and
+            features): every loss and grad norm finite, the parameters moved
+            from the seed's init. (b) smollm-360m at full width (409,007,040
+            bf16 parameters): 16 sequences of 4,096 tokens a step in two
+            microbatches of 8, remat on, warmup 20; 4 steps straight, then 4
+            steps with ``--ckpt-dir`` (a fresh temp dir, 12 GiB free
+            checked), ``--ckpt-every 2 --crash-at 2``, which must exit 17,
+            and the relaunch, which must print ``resumed from step 2``: its
+            metrics, parameters and AdamW m and v must be the straight
+            run's bit for bit, every loss and grad norm finite. The resumed
+            run's two steps run under a device-only profile.
+            (c) the straight run's weights and one 128-token request: loss
+            and grad norm on the card and, the weights moved there, on the
+            CPU within 0.02 and 2% (TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL). Then
+            the pipeline's Coconut hook: ``series_view(batch, 256)`` of
+            (b)'s four batches (1,024 token traces) teed into a
+            ``StreamingIndex`` on the card, one window kNN batch of 16
+            queries (k = 5) whose distances must be an f64 brute force's and
+            whose ids must be its ids away from ties; whether the pass
+            reached the device engine is logged. Logged: s/step and tok/s
+            over the straight run's last 3 steps beside the step's bound (its
+            operations over the dense bf16 rate), the peak memory, the AdamW
+            update's ms (CUDA events) beside its bytes over the HBM rate, the
+            checkpoint's bytes and save and restore seconds, the busy share,
+            device ops a step and top device ops of the traced steps, and the
+            phase's seconds.
+
+The profiler sometimes returns a trace with no device record of a call that
+ran on the card (F5): every traced check (phases 6, 14 and 16) then traces a
+repeat of the call, up to two times, before it fails, and logs how many it
+needed.
 
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -351,6 +388,30 @@ LM_LOGIT_TOL = 0.35
 # units of 2^-8 of the largest |v| bound their difference
 LM_FLASH_TOL_ULPS = 4 * 2.0 ** -8
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 (tensor cores), 700 W
+# LM training phase: every arch at smoke size through the command line,
+# then serve.py's default arch at full width: SHAPES["train_4k"]'s 4,096-token
+# sequences, its global batch of 256 cut to 16 (two microbatches of 8),
+# remat on, as launch/train.py trains; 4 steps straight, then a crash at step
+# 2 after the step-2 checkpoint and a resume
+TRAIN_SMOKE = ["--smoke", "--steps", "4", "--global-batch", "4", "--seq-len", "64",
+               "--grad-accum", "2"]
+TRAIN_BATCH = 16
+TRAIN_SEQ = 4096
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 4
+TRAIN_CRASH = 2  # == --ckpt-every: the crash follows the step-2 checkpoint
+TRAIN_WARMUP = 20
+TRAIN_TRACE_STEPS = 2  # steps after the runs, under the profiler
+TRAIN_CPU_TOKENS = 128  # the request whose loss and grad norm the CPU computes too
+# card against CPU in bf16: the loss (3x the bf16 loss gap between the two
+# packages on the CPU, <= 0.0060, tests/test_torch_train.py) and the grad
+# norm, relative
+TRAIN_LOSS_TOL = 0.02
+TRAIN_GNORM_RTOL = 0.02
+# two checkpoints of ~4.1 GB side by side (steps 2 and 4), with room
+CKPT_FREE_BYTES = 12 << 30
+RETRACES = 2  # repeats traced when a trace came back with no device record
+HOOK_SERIES_LEN = 256  # series_view's length for the Coconut hook
 T_START = time.perf_counter()
 
 
@@ -898,6 +959,7 @@ def probe_tier(torch, ops, engine, method, shapes, mesh=False):
         prof = None
         if traced:
             rec["traced"].append(i)
+            rec["repeat"] = lambda: real(self, *args, **kwargs)
             for n in kernels:
                 setattr(ops, n, recorder(n))
             prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -1271,7 +1333,8 @@ def phase_mesh(torch, ops, ref, serve, engine, model_served):
         "launches": dict(launches), "seconds": wall,
         "traced": report_traced(name, {"busy": rec["busy"], "seconds": rec["traced_s"],
                                        "launches": rec["traced_launches"],
-                                       "calls": len(rec["traced"])}, "topk_ed")}
+                                       "calls": len(rec["traced"])}, "topk_ed",
+                                lambda: trace_device(torch, ops, rec["repeat"]))}
     log(f"{name}: {len(calls)} served batches bitwise the exact f32 phase's and the "
         f"f64 brute force; topk_ed launched in every call ({launches['topk_ed']} in all); "
         f"{rec['fallback_queries']} of {queries} queries fell back to the host screen "
@@ -1780,26 +1843,76 @@ def timed_call(torch, ops, shapes, fn, trace=None):
     return ids, wall / QUERY_BATCH * 1e3, launches
 
 
-def report_traced(what, trace, kernel):
+def trace_device(torch, ops, fn):
+    """One call of ``fn`` under a device-only profile, in the form
+    ``report_traced`` reads: device time by name (microseconds), the number
+    of device ops, the wrappers' launches, the wall seconds and one call.
+    The profiler's raw records are read as they come: a training step runs
+    ~10^5 device ops, and building the profiler's Python events for them
+    (``key_averages``) takes a minute."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = collections.Counter()
+    n_ops = 0
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA") and e.duration_ns() > 0:
+            busy[e.name()] += e.duration_ns() / 1e3
+            n_ops += 1
+    launches = collections.Counter({k: v - before[k] for k, v in ops.LAUNCHES.items()})
+    return {"busy": busy, "ops": n_ops, "launches": launches, "seconds": wall, "calls": 1}
+
+
+def retraced(what, trace, seen, retrace):
+    """The profiler sometimes returns no device records (F5): while
+    ``seen(trace)`` is false, trace one repeat of the call (``retrace()``
+    gives its trace), up to RETRACES times. Returns the trace that saw it
+    (or the last one) and the number of repeats traced; the caller fails if
+    the last one still did not see it."""
+    n = 0
+    while not seen(trace) and retrace is not None and n < RETRACES:
+        n += 1
+        log(f"{what}: the trace holds no device record of the call: tracing a "
+            f"repeat ({n} of {RETRACES})")
+        trace = retrace()
+    return trace, n
+
+
+def report_traced(what, trace, kernel, retrace=None):
     """Log and return a traced mode's device busy share, H2D copy ms and
     device ms of ``kernel``'s own device kernels; fail if the calls launched
-    the wrapper and the profiler saw none of them, or saw a two-launch
-    topk_ed kernel."""
+    the wrapper and the profiler saw none of them after up to RETRACES
+    traced repeats of a call (``retrace``), or saw a two-launch topk_ed
+    kernel."""
+    def own_us(t):
+        return sum(us for k, us in t["busy"].items()
+                   if any(n in k for n in DEVICE_KERNELS[kernel]))
+
+    trace, n_retraced = retraced(
+        what, trace, lambda t: t["launches"][kernel] == 0 or own_us(t) > 0, retrace)
     busy = trace["busy"]
     busy_s = sum(busy.values()) / 1e6
-    own = sum(us for k, us in busy.items() if any(n in k for n in DEVICE_KERNELS[kernel]))
+    own = own_us(trace)
     out = {"calls": trace["calls"], "seconds": trace["seconds"],
            "device_busy_seconds": busy_s, "busy_share": busy_s / trace["seconds"],
            "h2d_ms": sum(us for k, us in busy.items() if "HtoD" in k) / 1e3,
            f"{DEVICE_KERNELS[kernel][0]}_ms": own / 1e3,
-           "launches": dict(trace["launches"])}
+           "launches": dict(trace["launches"]), "retraces": n_retraced}
     top = ", ".join(f"{k[:48]} {us / 1e3:.2f} ms" for k, us in busy.most_common(4))
     log(f"{what}: traced {out['calls']} calls: device busy {busy_s:.4f}s of "
         f"{out['seconds']:.4f}s (share {out['busy_share']:.4f}); H2D {out['h2d_ms']:.2f} "
         f"ms; {DEVICE_KERNELS[kernel][0]} {own / 1e3:.3f} ms over "
-        f"{trace['launches'][kernel]} launches; most device time: {top}")
+        f"{trace['launches'][kernel]} launches; most device time: {top}; "
+        f"{n_retraced} repeats re-traced")
     if trace["launches"][kernel] > 0 and own == 0:
-        fail(f"{what}: the profiler saw no {DEVICE_KERNELS[kernel]} in the traced calls")
+        fail(f"{what}: the profiler saw no {DEVICE_KERNELS[kernel]} in the traced calls "
+             f"({n_retraced} repeats re-traced)")
     if any(n in k for k in busy for n in TWO_LAUNCH_KERNELS):
         fail(f"{what}: the profiler saw a two-launch topk_ed kernel in the traced calls")
     return out
@@ -1892,6 +2005,7 @@ def phase_kernel_backend(torch, ops, kept, shapes):
         fail(f"kernel backend: only {pick.size} served pairs to ask again")
     lat = collections.defaultdict(list)
     traces = collections.defaultdict(dict)
+    repeat = {}  # mode -> its last traced call
     launches = collections.Counter()
     key_differ = 0
     t0 = time.perf_counter()
@@ -1904,13 +2018,15 @@ def phase_kernel_backend(torch, ops, kept, shapes):
         def call(mode, fn):
             got, dt, ln = timed_call(torch, ops, shapes, fn,
                                      traces[mode] if traced else None)
-            if not traced:
+            if traced:
+                repeat[mode] = fn
+            else:
                 lat[mode].append(dt)
             return got, ln
 
         for backend in ("kernel", "device"):
-            got, ln = call(f"exact {backend}", lambda: idx.window_knn_batch(
-                qs, t0b, t1b, k=K, backend=backend))
+            got, ln = call(f"exact {backend}", lambda qs=qs, t0b=t0b, t1b=t1b, backend=backend:
+                           idx.window_knn_batch(qs, t0b, t1b, k=K, backend=backend))
             if backend == "kernel":
                 launches.update(ln)
                 if ln["topk_ed"] == 0:
@@ -1922,7 +2038,8 @@ def phase_kernel_backend(torch, ops, kept, shapes):
         approx = {}
         for backend in ("kernel", "device"):
             approx[backend], ln = call(f"approx {backend}",
-                                       lambda: idx.window_knn_approx_batch(
+                                       lambda qs=qs, t0b=t0b, t1b=t1b, backend=backend:
+                                       idx.window_knn_approx_batch(
                                            qs, t0b, t1b, k=K, n_blocks=N_BLOCKS,
                                            backend=backend))
             if backend == "kernel":
@@ -1943,7 +2060,9 @@ def phase_kernel_backend(torch, ops, kept, shapes):
     summary = {f"{mode}": pct(v) for mode, v in lat.items()}
     for mode, trace in traces.items():
         kernel = "topk_ed" if mode.endswith("kernel") else "screen_select"
-        summary[f"traced {mode}"] = report_traced(f"kernel backend: {mode}", trace, kernel)
+        summary[f"traced {mode}"] = report_traced(
+            f"kernel backend: {mode}", trace, kernel,
+            lambda fn=repeat[mode]: trace_device(torch, ops, fn))
     summary["queries_with_differing_keys"] = key_differ
     summary["pairs"] = int(pick.size)
     summary["launches"] = dict(launches)
@@ -2429,6 +2548,360 @@ def phase_lm_serve(torch, ops, serve, seed):
     return summary
 
 
+def train_bounds(cfg, tokens, seq, batch, n_params):
+    """The least times of a training step on the card, from the code's
+    shapes: its operations over the dense bf16 rate (the layers' matmuls
+    forward, again in the remat forward and twice in the backward; the LM
+    head forward and twice back; causal flash attention's products over the
+    q-chunks it runs, four times likewise), and the AdamW update's bytes
+    over the HBM rate (per parameter: bf16 weight read and written, f32
+    gradient read, f32 m and v read and written: 24 bytes)."""
+    d, h, kv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.d_ff
+    per_token = d * h * hd + 2 * d * kv * hd + h * hd * d + 3 * d * f
+    qc = min(1024, seq)
+    nq = seq // qc
+    attn_fwd = 4.0 * batch * h * hd * qc * qc * nq * (nq + 1) / 2
+    flops = (8.0 * tokens * cfg.n_layers * per_token + 6.0 * tokens * d * cfg.vocab_padded
+             + 4.0 * cfg.n_layers * attn_fwd)
+    adamw_bytes = 24 * n_params
+    return {"step_tflop": flops / 1e12, "step_bound_s": flops / BF16_FLOP_PER_S,
+            "adamw_gb": adamw_bytes / 1e9,
+            "adamw_bound_ms": adamw_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+@contextlib.contextmanager
+def instrument_training(torch, ops, train, ckpt, rec):
+    """Time the checkpoint saves and restores and the AdamW updates of the
+    ``train.main`` runs inside (CUDA events around each update; read after
+    the run), count the bytes each save wrote, and, while ``rec["trace"]``
+    is set, run each train step under ``trace_device`` (its trace appended
+    to ``rec["traces"]``)."""
+    real_save, real_restore, real_adamw = ckpt.save, ckpt.restore, train.AdamW
+    real_factory = train.make_train_step
+
+    def factory(*a, **kw):
+        step = real_factory(*a, **kw)
+
+        def traced_step(*args):
+            if not rec.get("trace"):
+                return step(*args)
+            out = []
+            rec["traces"].append(trace_device(torch, ops, lambda: out.append(step(*args))))
+            return out[0]
+
+        return traced_step
+
+    def save(ckpt_dir, step, *a, **kw):
+        t0 = time.perf_counter()
+        out = real_save(ckpt_dir, step, *a, **kw)
+        rec["saves"].append((time.perf_counter() - t0,
+                             dir_bytes(Path(ckpt_dir) / f"step_{step:08d}")))
+        return out
+
+    def restore(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_restore(*a, **kw)
+        torch.cuda.synchronize()
+        rec["restores"].append(time.perf_counter() - t0)
+        return out
+
+    class TimedAdamW(real_adamw):
+        def update(self, *a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = super().update(*a, **kw)
+            ev[1].record()
+            rec["updates"].append(ev)
+            return out
+
+    ckpt.save, ckpt.restore, train.AdamW = save, restore, TimedAdamW
+    train.make_train_step = factory
+    try:
+        yield rec
+    finally:
+        ckpt.save, ckpt.restore, train.AdamW = real_save, real_restore, real_adamw
+        train.make_train_step = real_factory
+
+
+def phase_lm_train(torch, ops, train, seed):
+    """``launch/train.py`` on the card: every arch at smoke size, then
+    serve.py's default arch at full width, straight and crashed + resumed,
+    then the card against the CPU, and the pipeline's Coconut hook over the
+    full-width batches (docstring phase 16). Returns (the hook's launches,
+    the phase's summary)."""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.core import StreamConfig, StreamingIndex, SummarizationConfig
+    from repro_torch.core.verify_engine import get_engine
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.models.steps import TrainConfig, make_loss_and_grad, make_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+
+    t_phase = time.perf_counter()
+    summary = {"smoke": {}}
+    ops.reset_launches()
+    dev = torch.device(DEVICE)
+
+    def finite(out, what):
+        bad = [i for i, m in enumerate(out["metrics"])
+               if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]))]
+        if bad:
+            fail(f"{what}: non-finite loss or grad norm at steps {bad}")
+
+    def same_state(a, b, what):
+        differ = [n for (n, x), (_, y) in zip(a["params"].named_parameters(),
+                                              b["params"].named_parameters())
+                  if not torch.equal(x, y)]
+        differ += [f"opt.{k}.{n}" for k, tree in a["opt"].items()
+                   for n, t in tree.items() if not torch.equal(t, b["opt"][k][n])]
+        if differ:
+            fail(f"{what}: {len(differ)} leaves differ, e.g. {differ[:4]}")
+
+    # (a) every arch at smoke size, as the command line runs it
+    for arch in ARCH_IDS:
+        t0 = time.perf_counter()
+        out = train.main(["--arch", arch, *TRAIN_SMOKE, "--seed", str(seed),
+                          "--device", DEVICE])
+        finite(out, f"lm-train {arch}")
+        if out["params"].embed.device.type != dev.type:
+            fail(f"lm-train {arch}: the parameters are not on the card")
+        init = init_params(out["cfg"], torch.Generator(dev).manual_seed(seed), dev)
+        moved = sum(not torch.equal(a, b) for a, b in zip(init.parameters(),
+                                                           out["params"].parameters()))
+        if moved == 0:
+            fail(f"lm-train {arch}: no parameter changed")
+        losses = [round(m["loss"], 4) for m in out["metrics"]]
+        summary["smoke"][arch] = {"losses": losses, "seconds": time.perf_counter() - t0}
+        log(f"lm-train {arch}: 4 steps, losses {losses}, {moved} of "
+            f"{sum(1 for _ in init.parameters())} parameter tensors moved; "
+            f"{time.perf_counter() - t0:.2f}s")
+        del out, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) full width: straight, crashed at step 2 after its checkpoint, resumed
+    cfg = get_config(LM_ARCH)
+    args = ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS), "--global-batch",
+            str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--grad-accum", str(TRAIN_ACCUM),
+            "--warmup", str(TRAIN_WARMUP), "--seed", str(seed), "--log-every", "1",
+            "--device", DEVICE]
+    log(f"lm-train {LM_ARCH}: python -m repro_torch.launch.train {' '.join(args)}")
+    rec = {"saves": [], "restores": [], "updates": [], "traces": []}
+    root = tempfile.mkdtemp(prefix="coconut-smoke-ckpt-")
+    try:
+        free = shutil.disk_usage(root).free
+        log(f"lm-train: {root}, {free} bytes free (need {CKPT_FREE_BYTES})")
+        if free < CKPT_FREE_BYTES:
+            fail(f"lm-train: {root} has {free} bytes free, under {CKPT_FREE_BYTES}")
+        ckpt_args = ["--ckpt-dir", root, "--ckpt-every", str(TRAIN_CRASH)]
+        with instrument_training(torch, ops, train, ckpt, rec):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            straight = train.main(args)
+            straight_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            updates = [a.elapsed_time(b) for a, b in rec["updates"]]
+            t0 = time.perf_counter()
+            try:
+                train.main(args + ckpt_args + ["--crash-at", str(TRAIN_CRASH)])
+            except SystemExit as exc:
+                if exc.code != 17:
+                    fail(f"lm-train: the crashed run exited {exc.code!r}, not 17")
+            else:
+                fail("lm-train: the run with --crash-at returned instead of exiting 17")
+            crash_s = time.perf_counter() - t0
+            gc.collect()
+            buf = io.StringIO()
+            rec["trace"] = True  # the resumed run's steps run under the profiler
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                resumed = train.main(args + ckpt_args)
+            resume_s = time.perf_counter() - t0
+            rec["trace"] = False
+        sys.stdout.write(buf.getvalue())
+        if f"[train] resumed from step {TRAIN_CRASH}" not in buf.getvalue():
+            fail(f"lm-train: the relaunch did not print 'resumed from step {TRAIN_CRASH}'")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    finite(straight, f"lm-train {LM_ARCH} straight")
+    finite(resumed, f"lm-train {LM_ARCH} resumed")
+    if resumed["start"] != TRAIN_CRASH or resumed["metrics"] != straight["metrics"][TRAIN_CRASH:]:
+        fail(f"lm-train: the resumed steps' metrics {resumed['metrics']} are not the "
+             f"straight run's {straight['metrics'][TRAIN_CRASH:]}")
+    same_state(straight, resumed, "lm-train: crash + resume against the straight run")
+    n_params = sum(p.numel() for p in straight["params"].parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bounds = train_bounds(cfg, tokens, TRAIN_SEQ, TRAIN_BATCH // TRAIN_ACCUM, n_params)
+    steady = straight["step_seconds"][1:]
+    s_step = sum(steady) / len(steady)
+    upd_ms = sum(updates[1:]) / len(updates[1:])
+    (save_s, save_bytes), restore_s = rec["saves"][0], rec["restores"][-1]
+    log(f"lm-train {LM_ARCH}: {n_params:,} parameters, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a "
+        f"step in {TRAIN_ACCUM} microbatches, remat: {s_step:.4f} s/step, "
+        f"{tokens / s_step:.1f} tok/s over steps 2-{TRAIN_STEPS} (bound "
+        f"{bounds['step_bound_s']:.4f} s: {bounds['step_tflop']:.2f} TFLOP; step 1 "
+        f"{straight['step_seconds'][0]:.4f} s); peak {peak / 2**30:.3f} GiB; AdamW update "
+        f"{upd_ms:.3f} ms (bound {bounds['adamw_bound_ms']:.3f} ms: "
+        f"{bounds['adamw_gb']:.2f} GB); losses "
+        f"{[round(m['loss'], 4) for m in straight['metrics']]}, grad norms "
+        f"{[round(m['grad_norm'], 3) for m in straight['metrics']]}")
+    log(f"lm-train {LM_ARCH}: checkpoint of step {TRAIN_CRASH}: {save_bytes:,} bytes saved in "
+        f"{save_s:.2f}s ({save_bytes / save_s / 1e9:.2f} GB/s), restored in {restore_s:.2f}s; "
+        f"runs: straight {straight_s:.1f}s, crashed {crash_s:.1f}s, resumed {resume_s:.1f}s; "
+        f"the resumed run's parameters, m and v bit for bit the straight run's")
+    summary.update({
+        "arch": LM_ARCH, "params": n_params, "tokens_per_step": tokens,
+        "s_per_step": s_step, "tok_per_s": tokens / s_step,
+        "step_seconds": straight["step_seconds"], "peak_gib": peak / 2**30,
+        "adamw_update_ms": upd_ms, "ckpt_bytes": save_bytes, "ckpt_save_s": save_s,
+        "ckpt_restore_s": restore_s, "losses": [m["loss"] for m in straight["metrics"]],
+        "grad_norms": [m["grad_norm"] for m in straight["metrics"]], **bounds})
+    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if launched:
+        fail(f"lm-train: the training runs launched Coconut kernels {launched}")
+
+    # busy share and device ops over the resumed run's steps, each traced
+    # (a step whose trace came back with no device record is traced again,
+    # a further step of the resumed model, F5)
+    model, state = resumed["params"], resumed["opt"]
+    pipe = TokenPipeline(PipelineConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                        seed=seed), cfg)
+    step_fn = make_train_step(cfg, TrainConfig(grad_accum=TRAIN_ACCUM, remat=True),
+                              AdamW(AdamWConfig(warmup_steps=TRAIN_WARMUP,
+                                                total_steps=TRAIN_STEPS)))
+    at = [TRAIN_STEPS]
+
+    def one_step():
+        s = at[0]
+        at[0] += 1
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(s).items()}
+        step_fn(model, state, batch, s)
+
+    if len(rec["traces"]) != TRAIN_STEPS - TRAIN_CRASH:
+        fail(f"lm-train: {len(rec['traces'])} traced steps in the resumed run")
+    trace = {"busy": collections.Counter(), "seconds": 0.0, "ops": 0, "retraces": 0}
+    for t in rec["traces"]:
+        t, n = retraced("lm-train traced step", t, lambda t: sum(t["busy"].values()) > 0,
+                        lambda: trace_device(torch, ops, one_step))
+        if not t["busy"]:
+            fail(f"lm-train: a traced step held no device record after {n} repeats")
+        trace["busy"].update(t["busy"])
+        trace["seconds"] += t["seconds"]
+        trace["ops"] += t["ops"]
+        trace["retraces"] += n
+    n_traced = len(rec["traces"])
+    busy_s = sum(trace["busy"].values()) / 1e6
+    top = ", ".join(f"{k[:40]} {us / 1e3:.1f} ms" for k, us in trace["busy"].most_common(5))
+    log(f"lm-train {LM_ARCH}: {n_traced} traced steps (the resumed run's): device busy "
+        f"{busy_s:.4f}s of {trace['seconds']:.4f}s (share {busy_s / trace['seconds']:.4f}), "
+        f"{trace['ops'] / n_traced:.0f} device ops a step; {trace['retraces']} repeats "
+        f"re-traced; most device time: {top}")
+    summary.update({"busy_share": busy_s / trace["seconds"],
+                    "device_ops_per_step": trace["ops"] / n_traced,
+                    "traced_retraces": trace["retraces"],
+                    "top_device_ops": {k: us / 1e3 for k, us in trace["busy"].most_common(8)}})
+    del resumed, model, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the card against the CPU: the straight run's weights, one request
+    model = straight["params"]
+    lg = make_loss_and_grad(cfg, TrainConfig(remat=True))
+    one = {k: v[:1, :TRAIN_CPU_TOKENS] for k, v in pipe.batch(0).items()}
+
+    def loss_and_norm(device):
+        loss, _, grads = lg(model, {k: torch.from_numpy(v).to(device) for k, v in one.items()})
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values()))
+        return float(loss), float(gnorm)
+
+    ops.reset_launches()
+    card = loss_and_norm(dev)
+    model.to("cpu")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host = loss_and_norm(torch.device("cpu"))
+    loss_err = abs(card[0] - host[0])
+    gnorm_err = abs(card[1] - host[1]) / host[1]
+    log(f"lm-train {LM_ARCH}: one {TRAIN_CPU_TOKENS}-token request, card against CPU: loss "
+        f"{card[0]:.5f} / {host[0]:.5f} (|delta| {loss_err:.5f}, bound {TRAIN_LOSS_TOL}), "
+        f"grad norm {card[1]:.5f} / {host[1]:.5f} (relative {gnorm_err:.5f}, bound "
+        f"{TRAIN_GNORM_RTOL}); CPU loss and grads {time.perf_counter() - t0:.2f}s")
+    if loss_err > TRAIN_LOSS_TOL or gnorm_err > TRAIN_GNORM_RTOL:
+        fail("lm-train: the card and the CPU disagree on the loss or the grad norm")
+    summary.update({"card_vs_cpu_loss": loss_err, "card_vs_cpu_gnorm_rel": gnorm_err})
+    del model, straight, lg
+    gc.collect()
+    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if launched:
+        fail(f"lm-train: the card against the CPU launched Coconut kernels {launched}")
+
+    # the pipeline's Coconut hook: series_view of the full-width batches teed
+    # into a StreamingIndex on the card, one window kNN batch answered
+    engine = get_engine(DEVICE)
+    idx = StreamingIndex(StreamConfig(
+        scheme="BTP", summarization=SummarizationConfig(
+            series_len=HOOK_SERIES_LEN, n_segments=16, card_bits=8),
+        buffer_entries=1024, block_size=64, device=DEVICE))
+    rows = []
+    for s in range(TRAIN_STEPS):
+        view = pipe.series_view(pipe.batch(s), HOOK_SERIES_LEN).astype(np.float32)
+        idx.ingest(view, np.full(len(view), s, np.int64))
+        rows.append(view)
+    qs = pipe.series_view(pipe.batch(TRAIN_STEPS), HOOK_SERIES_LEN)[:QUERY_BATCH].astype(
+        np.float32)
+    before = {k: engine.stats[k] for k in ENGINE_COUNTERS}
+    ops.reset_launches()
+    d2, ids, _ = idx.window_knn_batch(qs, 0, TRAIN_STEPS - 1, k=K)
+    torch.cuda.synchronize()
+    hook_launches = collections.Counter(ops.LAUNCHES)
+    delta = {k: engine.stats[k] - before[k] for k in ("calls", "screened", "fallbacks")}
+    X = torch.from_numpy(np.concatenate(rows)).to(dev).double()
+    Q = torch.from_numpy(qs).to(dev).double()
+    want = torch.sort(torch.stack([((X - q) ** 2).sum(1) for q in Q]), dim=1, stable=True)
+    wd2, wids = want.values[:, :K + 1], want.indices[:, :K]
+    got = torch.from_numpy(d2).to(dev).double()
+    tol = 1e-5 * wd2[:, :K].abs() + 1e-3
+    if bool(((got - wd2[:, :K]).abs() > tol).any()):
+        fail(f"lm-train hook: window kNN distances differ from the f64 brute force by "
+             f"{float((got - wd2[:, :K]).abs().max())}")
+    gaps = torch.minimum(wd2[:, 1:] - wd2[:, :-1], torch.cat(
+        [wd2[:, :1] * 0 + math.inf, (wd2[:, 1:K] - wd2[:, :K - 1])], 1))
+    apart = gaps > tol
+    gid = torch.from_numpy(ids).to(dev)
+    if bool((apart & (gid != wids)).any()):
+        fail("lm-train hook: ids away from ties differ from the f64 brute force")
+    log(f"lm-train hook: {len(rows)} batches' series_view({HOOK_SERIES_LEN}) = "
+        f"{X.shape[0]} series ingested; {QUERY_BATCH} queries, k = {K}, window 0-"
+        f"{TRAIN_STEPS - 1}: distances the f64 brute force's, ids equal at "
+        f"{int(apart.sum())} of {apart.numel()} ranks away from ties; engine "
+        f"{delta} ({'reached' if delta['calls'] else 'did not reach'} the device engine), "
+        f"launches {dict((k, v) for k, v in hook_launches.items() if v)}")
+    summary["hook"] = {"series": int(X.shape[0]), "engine": delta,
+                       "launches": {k: v for k, v in hook_launches.items() if v},
+                       "ids_away_from_ties": int(apart.sum())}
+    idx.close()
+    del idx, X
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"lm-train: phase {summary['phase_seconds']:.1f}s; no Coconut kernel launched on "
+        "the training path")
+    return hook_launches, summary
+
+
 def percentile(a, p):
     import numpy as np
 
@@ -2684,6 +3157,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     summary["lm"] = phase_lm_serve(torch, ops, serve, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.launch import train
+
+    got, summary["lm-train"] = phase_lm_train(torch, ops, train, args.seed)
+    launches.update(got)
     for key, c in shapes.most_common(16):
         log(f"main path: call {key} x{c}")
     timed, floor_ms = phase_timing(torch, ops, ref, shapes, worst)

@@ -5,8 +5,10 @@ recurrentgemma = rec, rec, local-attn) repeated over the depth. The
 reference stacks each pattern position's parameters over the groups and
 scans them; here every layer is a block of its own (``groups[g][j]`` is
 layer ``first_dense + g * len(pattern) + j``) and the groups run in a
-Python loop. Layers outside a whole number of groups live in ``prefix``
-(e.g. DeepSeek-MoE's dense layer 0) and ``tail`` (remainder).
+Python loop; with ``remat`` each group runs under activation
+checkpointing, as the reference wraps its scan body in ``jax.checkpoint``.
+Layers outside a whole number of groups live in ``prefix`` (e.g.
+DeepSeek-MoE's dense layer 0) and ``tail`` (remainder).
 
 Layer kinds: "attn" (global GQA / MLA), "local" (block-banded sliding
 window), "rec" (RG-LRU), "rwkv" (WKV6 chunked). The MLP is dense SwiGLU or
@@ -21,6 +23,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (
     MLADims,
@@ -117,9 +120,10 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 class Params(nn.Module):
     """A tree of parameters under the reference's names: a dict becomes a
-    ``Params``, a list an ``nn.ModuleList``, a tensor a parameter (no
-    gradient: this is the serving substrate). ``p["attn"]["wq"]`` and
-    ``"moe" in p`` read as they do on the reference's dicts."""
+    ``Params``, a list an ``nn.ModuleList``, a tensor a parameter, frozen
+    (serving needs no gradient; the trainer turns gradients on with
+    ``requires_grad_(True)``). ``p["attn"]["wq"]`` and ``"moe" in p`` read
+    as they do on the reference's dicts."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -334,12 +338,26 @@ def _stack_groups(caches: list) -> list:
             for j in range(len(caches[0]))]
 
 
+def _group_fwd(group, cfg: ModelConfig, x, lb_total, positions, want_cache: bool,
+               cache_len):
+    """One group's pattern of layers (the reference's scan body)."""
+    caches = []
+    for j, kind in enumerate(cfg.pattern):
+        x, lb, c = _layer_fwd(group[j], cfg, kind, x, positions, want_cache, cache_len)
+        lb_total = lb_total + lb
+        caches.append(c)
+    return x, lb_total, caches
+
+
 def forward(params, cfg: ModelConfig, batch: dict, *, want_cache: bool = False,
-            cache_len=None):
+            remat: bool = False, cache_len=None):
     """Full-sequence forward. Returns (hidden (B,S,D), lb_loss, cache|None).
 
-    cache_len: total KV-cache slots to allocate when want_cache (must exceed
-    the prompt length by the number of decode steps that will follow)."""
+    remat: recompute each group's activations in the backward pass instead
+    of keeping them (prefix and tail layers keep theirs, as in the
+    reference). cache_len: total KV-cache slots to allocate when want_cache
+    (must exceed the prompt length by the number of decode steps that will
+    follow)."""
     x, positions = _embed_inputs(params, cfg, batch)
     lb_total = 0.0
     kinds = cfg.layer_kinds
@@ -349,12 +367,11 @@ def forward(params, cfg: ModelConfig, batch: dict, *, want_cache: bool = False,
         lb_total = lb_total + lb
         prefix_cache.append(c)
     for group in params["groups"]:
-        caches = []
-        for j, kind in enumerate(cfg.pattern):
-            x, lb, c = _layer_fwd(group[j], cfg, kind, x, positions, want_cache,
-                                  cache_len)
-            lb_total = lb_total + lb
-            caches.append(c)
+        args = (group, cfg, x, lb_total, positions, want_cache, cache_len)
+        if remat:
+            x, lb_total, caches = checkpoint(_group_fwd, *args, use_reentrant=False)
+        else:
+            x, lb_total, caches = _group_fwd(*args)
         group_cache.append(caches)
     for j, p in enumerate(params["tail"]):
         x, lb, c = _layer_fwd(p, cfg, cfg.tail_kinds[j], x, positions, want_cache,

@@ -466,14 +466,19 @@ def test_cuda_sax_and_keys_planted_values_in_one_launch(cuda, b):
     assert torch.equal(sym, psym) and torch.equal(keys, pkeys)
     assert int(keys.min()) >= 0 and int(keys.max()) < 2 ** 32
     calls = 4
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            ops.sax_and_keys(p, cfg)
-        torch.cuda.synchronize()
-    names = collections.Counter()
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CPU"):
-            names[e.key] += e.count
+    # the profiler sometimes returns no device record of calls that ran on
+    # the card: a trace that holds none is taken again, up to two times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                ops.sax_and_keys(p, cfg)
+            torch.cuda.synchronize()
+        names = collections.Counter()
+        for e in prof.key_averages():
+            if not str(getattr(e, "device_type", "")).endswith("CPU"):
+                names[e.key] += e.count
+        if names:
+            break
     sax = sum(c for name, c in names.items() if "sax_pack_kernel" in name)
     assert 0 < sax <= calls, names
     others = [n for n in names if "kernel" in n.lower() and "sax_pack_kernel" not in n]
@@ -851,3 +856,70 @@ def test_cuda_lm_matches_cpu(cuda, arch):
     top2 = host.topk(2, dim=-1).values
     sure = (top2[:, 0] - top2[:, 1]) > 0.7
     assert bool((card.argmax(-1) == host.argmax(-1))[sure].all())
+
+
+# ------------------------------------------------------- the training path
+TRAIN_ARCHS = ["smollm-360m", "deepseek-moe-16b", "llava-next-34b", "hubert-xlarge",
+               "recurrentgemma-9b", "rwkv6-3b"]
+
+
+def _train_batch(cfg, device):
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+
+    pipe = TokenPipeline(PipelineConfig(global_batch=4, seq_len=32, seed=3), cfg)
+    return {k: torch.from_numpy(v).to(device) for k, v in pipe.batch(0).items()}
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_cuda_train_step_matches_cpu(cuda, arch):
+    """One smoke train step (grad_accum 2, remat) from the same weights on
+    the card and on the CPU: the loss within 0.02 and the grad norm within
+    2% (chip_smoke.py's TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL), and each updated
+    weight within 2 lr plus one bf16 ulp (AdamW moves a weight by about lr
+    sign(g); a sign inside the rounding noise may differ)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.steps import TrainConfig, make_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+
+    cfg = get_config(arch, smoke=True)
+    lr = 1e-3
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        model = init_params(cfg, torch.Generator(cuda).manual_seed(4), cuda).to(device)
+        opt = AdamW(AdamWConfig(learning_rate=lr, warmup_steps=1))
+        step = make_train_step(cfg, TrainConfig(grad_accum=2, remat=True), opt)
+        model, _, metrics = step(model, opt.init(model), _train_batch(cfg, device), 1)
+        out.append((model, {k: float(v) for k, v in metrics.items()}))
+    (card, mc), (host, mh) = out
+    assert card.embed.device.type == cuda.type
+    assert abs(mc["loss"] - mh["loss"]) <= 0.02, (mc, mh)
+    assert abs(mc["grad_norm"] - mh["grad_norm"]) <= 0.02 * mh["grad_norm"], (mc, mh)
+    for (name, a), (_, b) in zip(card.named_parameters(), host.named_parameters()):
+        a, b = a.detach().float().cpu(), b.detach().float()
+        assert bool(((a - b).abs() <= 2 * lr + 2.0 ** -7 * b.abs()).all()), name
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "deepseek-moe-16b"])
+def test_cuda_train_crash_resume_is_bitwise(cuda, arch, tmp_path, capsys):
+    """launch/train.py on the card at smoke size: a run crashed at step 3
+    after the step-2 checkpoint and relaunched ends bit for bit where the
+    straight run ends (metrics, parameters, m and v)."""
+    from repro_torch.launch import train
+
+    args = ["--arch", arch, "--smoke", "--steps", "5", "--global-batch", "4",
+            "--seq-len", "64", "--grad-accum", "2", "--device", cuda.type]
+    straight = train.main(args)
+    ck = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    with pytest.raises(SystemExit) as exc:
+        train.main(args + ck + ["--crash-at", "3"])
+    assert exc.value.code == 17
+    resumed = train.main(args + ck)
+    assert "[train] resumed from step 2" in capsys.readouterr().out
+    assert resumed["metrics"] == straight["metrics"][2:]
+    for (name, a), (_, b) in zip(straight["params"].named_parameters(),
+                                 resumed["params"].named_parameters()):
+        assert a.device.type == cuda.type and torch.equal(a, b), name
+    for k, tree in straight["opt"].items():
+        for name, t in tree.items():
+            assert torch.equal(t, resumed["opt"][k][name]), (k, name)

@@ -27,7 +27,8 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                  "kernels.ref", "kernels._build", "launch.serve",
                  "core.recommender", "core.autotune", "core.gateway",
                  "core.distributed", "models.transformer", "models.weights",
-                 "configs"):
+                 "configs", "train.optimizer", "train.checkpoint",
+                 "train.compression", "data.pipeline", "launch.train"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -70,7 +71,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
     from repro_torch.core import (
         CLSM, ADSConfig, ADSIndex, CLSMConfig, CTree, CTreeConfig, RawStore,
         StreamConfig, StreamingIndex, VerifyEngine, get_engine)
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
 
     for make in (VerifyEngine, get_engine, lambda: RawStore(16),
                  lambda: CTree(CTreeConfig()), lambda: CLSM(CLSMConfig()),
@@ -83,6 +84,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
                  ["--mode", "lm"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--smoke", "--steps", "1"])
     # asked for explicitly, the CPU runs the plain versions
     assert VerifyEngine(device="cpu").device.type == "cpu"
     assert StreamingIndex(StreamConfig(device="cpu")).raw.device.type == "cpu"
@@ -125,13 +128,16 @@ def test_every_kernel_source_is_built():
 
 
 def test_the_lm_path_runs_no_library_attention_or_compiler():
-    """The model stack computes what the reference computes, with plain
-    torch ops: no fused attention of a library, no ``torch.compile``."""
+    """The model stack, the trainer and its optimizer compute what the
+    reference computes, with plain torch ops: no fused attention of a
+    library, no ``torch.compile``, no ``torch.optim`` optimizer."""
     found = []
-    for path in sorted((PKG / "models").glob("*.py")):
+    paths = [*(PKG / "models").glob("*.py"), *(PKG / "train").glob("*.py"),
+             PKG / "launch" / "train.py", PKG / "data" / "pipeline.py"]
+    for path in sorted(paths):
         text = path.read_text()
         for name in ("scaled_dot_product_attention", "torch.compile", "flash_attn",
-                     "xformers"):
+                     "xformers", "torch.optim", "from torch import optim"):
             if name in text:
                 found.append(f"{path.name}: {name}")
     assert found == []
