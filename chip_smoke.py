@@ -199,34 +199,70 @@ Phases, each reported on lines of its own:
             kernel may launch in (a)-(c) (counts set to 0 at the start of
             (a) and read at the end of (b); set to 0 again before (c), read
             after). (a) ``train.main([..."--arch", A,
-            "--smoke", "--steps", "4", "--global-batch", "4", "--seq-len",
+            "--smoke", "--steps", "2", "--global-batch", "4", "--seq-len",
             "64", "--grad-accum", "2", "--device", "cuda"])`` for all ten
             archs, frontends included (the pipeline supplies patches and
             features): every loss and grad norm finite, the parameters moved
             from the seed's init. (b) smollm-360m at full width (409,007,040
             bf16 parameters): 16 sequences of 4,096 tokens a step in two
-            microbatches of 8, remat on, warmup 20; 4 steps straight, then 4
+            microbatches of 8, remat on, warmup 20; 3 steps straight, then 3
             steps with ``--ckpt-dir`` (a fresh temp dir, 12 GiB free
-            checked), ``--ckpt-every 2 --crash-at 2``, which must exit 17,
+            checked; its step-2 checkpoint is kept for phase 17, which
+            removes it), ``--ckpt-every 2 --crash-at 2``, which must exit 17,
             and the relaunch, which must print ``resumed from step 2``: its
             metrics, parameters and AdamW m and v must be the straight
             run's bit for bit, every loss and grad norm finite. The resumed
-            run's two steps run under a device-only profile.
+            run's step runs under a device-only profile.
             (c) the straight run's weights and one 128-token request: loss
             and grad norm on the card and, the weights moved there, on the
             CPU within 0.02 and 2% (TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL). Then
             the pipeline's Coconut hook: ``series_view(batch, 256)`` of
-            (b)'s four batches (1,024 token traces) teed into a
+            (b)'s three batches (768 token traces) teed into a
             ``StreamingIndex`` on the card, one window kNN batch of 16
             queries (k = 5) whose distances must be an f64 brute force's and
             whose ids must be its ids away from ties; whether the pass
             reached the device engine is logged. Logged: s/step and tok/s
-            over the straight run's last 3 steps beside the step's bound (its
+            over the straight run's last 2 steps beside the step's bound (its
             operations over the dense bf16 rate), the peak memory, the AdamW
             update's ms (CUDA events) beside its bytes over the HBM rate, the
             checkpoint's bytes and save and restore seconds, the busy share,
-            device ops a step and top device ops of the traced steps, and the
-            phase's seconds.
+            device ops a step and top device ops of the traced step, and the
+            phase's seconds. Depth cut for the script's time limit: 3 steps
+            (was 4) and 2 smoke steps an arch (was 4).
+
+17. lm-sharded: run after phase 16 and before the timing phase; no Coconut
+            kernel may launch in (b)-(c). (a) the dry run, CPU work in
+            eight niced subprocesses started first, which run beside (b)
+            and (c): ``python -m repro_torch.launch.dryrun --arch
+            smollm-360m`` for each variant (``--variant baseline``, ``opt``)
+            and mesh (``--mesh single``, ``multi``), once with ``--shape
+            train_4k`` and once with ``--shape prefill_32k,decode_32k``, the
+            baseline single pod's second with ``--coconut`` (the three
+            Coconut cells at 2^26 x 256 on (16, 16)); each is rank 0 of a
+            "fake" process group of 256 or 512 ranks, its parameters, AdamW
+            state, cache and batch ``DTensor``s of fake tensors on the card's
+            device type. Fails on a FAIL line, unless every cell was written,
+            unless each LM cell's ``args_bytes`` equals the local shard
+            bytes of its inputs under the specs (computed here from the
+            specs and the shapes), and unless ``0 < useful_flops_ratio <=
+            1.05``. Logged per cell: memory per device, FLOPs and bytes per
+            device, collective bytes by kind, the roofline terms and the
+            bottleneck. (b) smollm-360m at full width, phase 16's run (its
+            seed, 16 x 4,096 tokens a step in two microbatches, remat,
+            warmup 20, 3 total steps), its first 2 steps sharded on a
+            one-rank NCCL mesh of shape (1, 1) over ("data", "model"):
+            parameters, AdamW state and batch ``DTensor``s placed by
+            ``launch/specs.py``, the ``opt`` variant's ZeRO-1 hooks, the
+            sharding context installed, deterministic algorithms on as
+            ``launch/train.py`` runs. Fails unless the losses and grad norms
+            are bit for bit phase 16's first two steps', and every parameter
+            and AdamW m and v bit for bit phase 16's step-2 checkpoint. (c)
+            the sharded state saved as a checkpoint (every leaf gathered
+            whole, rank 0 writing) and restored with ``shardings`` onto the
+            mesh: every leaf bitwise, then step 3 on it, whose loss and grad
+            norm must be phase 16's step 3's bit for bit. Logged: s/step and
+            peak GiB beside phase 16's, the ops run replicated, the
+            checkpoint's bytes and seconds.
 
 The profiler sometimes returns a trace with no device record of a call that
 ran on the card (F5): every traced check (phases 6, 14 and 16) then traces a
@@ -391,14 +427,16 @@ BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 (tensor cores), 700 W
 # LM training phase: every arch at smoke size through the command line,
 # then serve.py's default arch at full width: SHAPES["train_4k"]'s 4,096-token
 # sequences, its global batch of 256 cut to 16 (two microbatches of 8),
-# remat on, as launch/train.py trains; 4 steps straight, then a crash at step
-# 2 after the step-2 checkpoint and a resume
-TRAIN_SMOKE = ["--smoke", "--steps", "4", "--global-batch", "4", "--seq-len", "64",
+# remat on, as launch/train.py trains; 3 steps straight, then a crash at step
+# 2 after the step-2 checkpoint and a resume (3 steps, and 2 a smoke arch,
+# to keep the script inside its time limit with phase 17: that phase holds
+# the same run's steps 1-3 again)
+TRAIN_SMOKE = ["--smoke", "--steps", "2", "--global-batch", "4", "--seq-len", "64",
                "--grad-accum", "2"]
 TRAIN_BATCH = 16
 TRAIN_SEQ = 4096
 TRAIN_ACCUM = 2
-TRAIN_STEPS = 4
+TRAIN_STEPS = 3
 TRAIN_CRASH = 2  # == --ckpt-every: the crash follows the step-2 checkpoint
 TRAIN_WARMUP = 20
 TRAIN_TRACE_STEPS = 2  # steps after the runs, under the profiler
@@ -408,8 +446,19 @@ TRAIN_CPU_TOKENS = 128  # the request whose loss and grad norm the CPU computes 
 # norm, relative
 TRAIN_LOSS_TOL = 0.02
 TRAIN_GNORM_RTOL = 0.02
-# two checkpoints of ~4.1 GB side by side (steps 2 and 4), with room
+# two checkpoints of ~4.1 GB side by side (phase 16's step 2, kept for phase
+# 17, and phase 17's), with room
 CKPT_FREE_BYTES = 12 << 30
+# the dry run's cells: smollm-360m's three shapes on both meshes in both
+# variants, in eight subprocesses (a (variant, mesh)'s train_4k cell in one,
+# its prefill_32k and decode_32k in another), the Coconut cells with the
+# baseline single pod's; a train_4k or prefill_32k cell traces in about a
+# minute on the card machine's host, a decode cell in seconds (PERF.md)
+DRYRUN_RUNS = tuple((variant, mesh, shapes, (variant, mesh, shapes) == (
+    "baseline", "single", "prefill_32k,decode_32k"))
+    for variant in ("baseline", "opt") for mesh in ("single", "multi")
+    for shapes in ("train_4k", "prefill_32k,decode_32k"))
+DRYRUN_TIMEOUT = 600  # seconds for the dry-run subprocesses
 RETRACES = 2  # repeats traced when a trace came back with no device record
 HOOK_SERIES_LEN = 256  # series_view's length for the Coconut hook
 T_START = time.perf_counter()
@@ -2684,7 +2733,7 @@ def phase_lm_train(torch, ops, train, seed):
             fail(f"lm-train {arch}: no parameter changed")
         losses = [round(m["loss"], 4) for m in out["metrics"]]
         summary["smoke"][arch] = {"losses": losses, "seconds": time.perf_counter() - t0}
-        log(f"lm-train {arch}: 4 steps, losses {losses}, {moved} of "
+        log(f"lm-train {arch}: {TRAIN_SMOKE[2]} steps, losses {losses}, {moved} of "
             f"{sum(1 for _ in init.parameters())} parameter tensors moved; "
             f"{time.perf_counter() - t0:.2f}s")
         del out, init
@@ -2734,8 +2783,13 @@ def phase_lm_train(torch, ops, train, seed):
         sys.stdout.write(buf.getvalue())
         if f"[train] resumed from step {TRAIN_CRASH}" not in buf.getvalue():
             fail(f"lm-train: the relaunch did not print 'resumed from step {TRAIN_CRASH}'")
-    finally:
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
+        raise
+    # phase 17 holds its sharded steps to this run's step-2 checkpoint (and
+    # removes the directory)
+    shutil.rmtree(Path(root) / f"step_{TRAIN_STEPS:08d}", ignore_errors=True)
+    summary["ckpt_dir"] = root
     finite(straight, f"lm-train {LM_ARCH} straight")
     finite(resumed, f"lm-train {LM_ARCH} resumed")
     if resumed["start"] != TRAIN_CRASH or resumed["metrics"] != straight["metrics"][TRAIN_CRASH:]:
@@ -2900,6 +2954,331 @@ def phase_lm_train(torch, ops, train, seed):
     log(f"lm-train: phase {summary['phase_seconds']:.1f}s; no Coconut kernel launched on "
         "the training path")
     return hook_launches, summary
+
+
+def spec_shard_bytes(torch, cfg, shape, variant, multi_pod):
+    """The local shard bytes of a dry-run cell's inputs under the specs, from
+    the shapes: each sharded dim divided by its mesh axes' sizes."""
+    import types
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import specs
+    from repro_torch.launch.dryrun import abstract_batch
+    from repro_torch.models.transformer import init_params, make_cache
+
+    sizes = {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
+    mesh = types.SimpleNamespace(mesh_dim_names=tuple(sizes), shape=tuple(sizes.values()))
+    shp = SHAPES[shape]
+    model = init_params(cfg, None, "meta")
+    pspecs = specs.param_specs(model, mesh)
+    if variant == "opt" and shp.kind == "decode":
+        pspecs = specs.drop_axis_specs(pspecs, "data")
+
+    def shard(t, spec):
+        n = t.numel() * t.element_size()
+        for e in spec:
+            for a in ((e,) if isinstance(e, str) else (e or ())):
+                n //= sizes[a]
+        return n
+
+    named = dict(model.named_parameters())
+    total = sum(shard(p, pspecs[k]) for k, p in named.items())
+    if shp.kind == "train":
+        total += sum(2 * shard(torch.empty(p.shape, dtype=torch.float32, device="meta"),
+                               pspecs[k]) for k, p in named.items())
+    if shp.kind in ("train", "prefill"):
+        batch = abstract_batch(cfg, shp)
+        bs = specs.batch_specs(batch, mesh, multi_pod)
+        total += sum(shard(t, bs[k]) for k, t in batch.items())
+    else:
+        cache = make_cache(cfg, shp.global_batch, shp.seq_len, device="meta")
+        cs = specs.cache_specs(cache, mesh, multi_pod)
+
+        def walk(node, spec):
+            if isinstance(node, dict):
+                return sum(walk(node[k], spec[k]) for k in node)
+            if isinstance(node, list):
+                return sum(walk(v, s) for v, s in zip(node, spec))
+            return shard(node, spec) if isinstance(node, torch.Tensor) else 0
+
+        token = torch.empty((shp.global_batch, 1), dtype=torch.int32, device="meta")
+        total += walk(cache, cs) + shard(token, specs.batch_specs(token, mesh, multi_pod))
+    return total
+
+
+def start_dryruns(out_dir):
+    """The dry-run subprocesses of phase 17(a), started (CPU work)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    runs = {}
+    for variant, mesh, shapes, coconut in DRYRUN_RUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LM_ARCH,
+               "--shape", shapes, "--mesh", mesh, "--variant", variant,
+               "--out", str(out_dir), "--device", DEVICE] + (["--coconut"] if coconut else [])
+        log(f"lm-sharded dry run: {' '.join(cmd[1:])}")
+        tag = f"{variant}-{mesh}-{shapes.split(',')[0]}"
+        log_path = out_dir / f"{tag}.log"
+        with open(log_path, "w") as f:
+            # niced: the card's steps of (b) and (c) run beside them
+            runs[tag] = (subprocess.Popen(
+                cmd, env=env, cwd=str(ROOT), stdout=f, stderr=subprocess.STDOUT,
+                preexec_fn=lambda: os.nice(10)), log_path)
+    return runs
+
+
+def finish_dryruns(torch, runs, out_dir, t_start):
+    """Wait for the dry runs and check them (docstring phase 17(a))."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import _pad_heads
+
+    cells = {}
+    for tag, (proc, log_path) in runs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t_start)))
+        except subprocess.TimeoutExpired:
+            for p, _ in runs.values():
+                p.kill()
+            fail(f"lm-sharded dry run ({tag}) ran past {DRYRUN_TIMEOUT} s")
+        text = log_path.read_text()
+        for line in text.splitlines():
+            if line.startswith(("FAIL ", "SKIP ", "dry-run complete")):
+                log(f"lm-sharded dry run ({tag}): {line}")
+        if rc != 0 or "FAIL " in text:
+            fail(f"lm-sharded dry run ({tag}) exited {rc}: {text[-2000:]}")
+    for path in sorted(out_dir.glob("*.json")):
+        res = json.loads(path.read_text())
+        cells[path.stem] = res
+        if "useful_flops_ratio" not in res:
+            continue  # a Coconut cell
+        variant = res["variant"]
+        cfg = get_config(res["arch"])
+        if variant == "opt":
+            cfg = _pad_heads(cfg, 16)
+        want = spec_shard_bytes(torch, cfg, res["shape"], variant, res["mesh"] == "2x16x16")
+        got = res["mem_per_device"]["args_bytes"]
+        if got != want:
+            fail(f"lm-sharded dry run {path.stem}: args_bytes {got} != the specs' local "
+                 f"shard bytes {want}")
+        if not 0 < res["useful_flops_ratio"] <= 1.05:
+            fail(f"lm-sharded dry run {path.stem}: useful_flops_ratio "
+                 f"{res['useful_flops_ratio']} outside (0, 1.05]")
+    want_cells = sum(len(shapes.split(",")) for _, _, shapes, _ in DRYRUN_RUNS) + 3
+    if len(cells) != want_cells:
+        fail(f"lm-sharded dry run: {len(cells)} cells written, not {want_cells}")
+    for tag, res in sorted(cells.items()):
+        m, c, r = res["mem_per_device"], res["cost_per_device"], res["roofline_s"]
+        colls = {k: v["bytes"] for k, v in sorted(res["collectives"].items())}
+        log(f"lm-sharded dry run {tag}: traced {res['lower_s']} s; memory/device "
+            f"{m['total_gb']} GB (args {m['args_bytes']}, temp {m['temp_bytes']}); "
+            f"FLOPs/device {c['flops']:.6g}, bytes/device {c['bytes']:.6g}; collective "
+            f"bytes/device {colls}; roofline compute {r['compute']:.6g} s, memory "
+            f"{r['memory']:.6g} s, collective {r['collective']:.6g} s -> {res['bottleneck']}"
+            + (f"; useful FLOPs ratio {res['useful_flops_ratio']}"
+               if "useful_flops_ratio" in res else ""))
+    return cells
+
+
+def unsharded_reference(torch, train, seed):
+    """Phase 16(b)'s straight run, for phase 17 run alone: its metrics and a
+    directory holding its step-2 checkpoint."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="coconut-smoke-ckpt-")
+    out = train.main(["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS), "--global-batch",
+                      str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--grad-accum",
+                      str(TRAIN_ACCUM), "--warmup", str(TRAIN_WARMUP), "--seed", str(seed),
+                      "--log-every", "1", "--device", DEVICE, "--ckpt-dir", root,
+                      "--ckpt-every", str(TRAIN_CRASH)])
+    return {"losses": [m["loss"] for m in out["metrics"]],
+            "grad_norms": [m["grad_norm"] for m in out["metrics"]], "ckpt_dir": root}
+
+
+def phase_lm_sharded(torch, ops, train, seed, reference=None):
+    """smollm-360m sharded (docstring phase 17): the dry run's subprocesses,
+    then 2 train steps sharded on a one-rank NCCL mesh held bit for bit to
+    phase 16's unsharded run (``reference``: its summary, with its step-2
+    checkpoint's directory, which this phase removes; None when the phase
+    runs alone: that run is made here first), and an elastic restore.
+    Returns the phase's summary."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="coconut-dryrun-"))
+    runs = start_dryruns(out_dir)
+    try:
+        return _lm_sharded(torch, ops, train, seed, reference, runs, out_dir, t_phase)
+    finally:  # on a failed check too: no dry run outlives the phase
+        for proc, _ in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _lm_sharded(torch, ops, train, seed, reference, runs, out_dir, t_phase):
+    """The body of :func:`phase_lm_sharded`, its dry runs started."""
+    import shutil
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as PD
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch import specs
+    from repro_torch.models import shardctx
+    from repro_torch.models.steps import TrainConfig, make_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+
+    if reference is None:
+        reference = unsharded_reference(torch, train, seed)
+    summary = {}
+    dev = torch.device(DEVICE)
+    cfg = get_config(LM_ARCH)
+    pipe = TokenPipeline(PipelineConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                        seed=seed), cfg)
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+
+    def value(t):
+        return float(t.full_tensor() if isinstance(t, DTensor) else t)
+
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+    def steps(params, state, step_fn, first, n, mesh, refused):
+        out, secs = [], []
+        for s in range(first, first + n):
+            b = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(s).items()}
+            batch = specs.distribute_tree(b, specs.batch_specs(b, mesh, False), mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with shardctx.ctx(mesh, ("data",)), implicit_replication(), \
+                    specs.ReplicateRefused() as mode:
+                params, state, m = step_fn(params, state, batch, s)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            refused.update(mode.refused)
+            out.append({k: value(v) for k, v in m.items()})
+        return params, state, out, secs
+
+    def same(want, params, state, what):
+        """``want``: a restored tree {"params": {name: t}, "opt": {k: {name: t}}}."""
+        differ = [n for n, p in params.named_parameters()
+                  if not torch.equal(whole(p).cpu(), whole(want["params"][n]).cpu())]
+        differ += [f"opt.{k}.{n}" for k, tree in state.items() for n, t in tree.items()
+                   if not torch.equal(whole(t).cpu(), whole(want["opt"][k][n]).cpu())]
+        if differ:
+            fail(f"{what}: {len(differ)} leaves differ, e.g. {differ[:4]}")
+
+    def metrics_of(i, j):
+        return [(reference["losses"][s], reference["grad_norms"][s]) for s in range(i, j)]
+
+    ref_dir = reference["ckpt_dir"]
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh = PD.make_mesh((1, 1), ("data", "model"), DEVICE)
+        if torch.distributed.get_backend() != ("nccl" if dev.type == "cuda" else "gloo"):
+            fail(f"lm-sharded: the mesh's group is {torch.distributed.get_backend()}")
+        ops.reset_launches()
+        # (b) 2 steps sharded, held to phase 16's run and its step-2 checkpoint
+        torch.cuda.reset_peak_memory_stats()
+        model = init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+        pspecs = specs.param_specs(model, mesh)
+        specs.distribute_model(model, pspecs, mesh)
+        opt = AdamW(AdamWConfig(warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS))
+        state = opt.init(model)
+        step_fn = make_train_step(cfg, TrainConfig(grad_accum=TRAIN_ACCUM, remat=True), opt,
+                                  *specs.zero1_hooks(model, pspecs, mesh))
+        refused = collections.Counter()
+        model, state, got_m, secs = steps(model, state, step_fn, 0, TRAIN_CRASH, mesh, refused)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(isinstance(p, DTensor) for p in model.parameters()):
+            fail("lm-sharded: a parameter of the sharded run is not a DTensor")
+        got = [(m["loss"], m["grad_norm"]) for m in got_m]
+        if got != metrics_of(0, TRAIN_CRASH):
+            fail(f"lm-sharded: sharded (loss, grad norm) {got}, unsharded "
+                 f"{metrics_of(0, TRAIN_CRASH)}")
+        unsharded, _ = ckpt.restore(ref_dir, TRAIN_CRASH, {"params": model, "opt": state},
+                                    device="cpu")
+        same(unsharded, model, state, "lm-sharded: sharded against the unsharded run")
+        del unsharded
+        log(f"lm-sharded {LM_ARCH}: {TRAIN_CRASH} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+            f"{TRAIN_ACCUM} microbatches, remat, on the one-rank "
+            f"{torch.distributed.get_backend()} mesh {tuple(mesh.shape)} over "
+            f"{mesh.mesh_dim_names}: s/step {secs} (unsharded "
+            f"{reference.get('s_per_step')} over its steps 2-{TRAIN_STEPS}), peak "
+            f"{peak / 2**30:.3f} GiB (unsharded {reference.get('peak_gib')}); losses and grad "
+            f"norms {got}, bit for bit the unsharded run's; every parameter and AdamW m and v "
+            f"bit for bit its step-{TRAIN_CRASH} checkpoint; ops run replicated "
+            f"{dict(refused)}")
+        summary.update({"s_per_step": secs, "peak_gib": peak / 2**30,
+                        "losses": [m["loss"] for m in got_m],
+                        "grad_norms": [m["grad_norm"] for m in got_m],
+                        "replicated_ops": dict(refused)})
+
+        # (c) the sharded state saved, restored with shardings, one more step
+        root = tempfile.mkdtemp(prefix="coconut-smoke-sharded-ckpt-")
+        try:
+            t0 = time.perf_counter()
+            ckpt.save(root, TRAIN_CRASH, {"params": model, "opt": state})
+            save_s = time.perf_counter() - t0
+            nbytes = dir_bytes(Path(root) / f"step_{TRAIN_CRASH:08d}")
+            shardings = {
+                "params": {n: (mesh, tuple(p.placements)) for n, p in model.named_parameters()},
+                "opt": {k: {n: (mesh, tuple(t.placements)) for n, t in tree.items()}
+                        for k, tree in state.items()}}
+            t0 = time.perf_counter()
+            tree, _ = ckpt.restore(root, TRAIN_CRASH, {"params": model, "opt": state},
+                                   shardings=shardings)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        restored = specs.rebuild(model, lambda n, p: tree["params"][n])
+        bad = [n for n, p in restored.named_parameters()
+               if not isinstance(p, DTensor) or p.placements != model.get_parameter(n).placements]
+        if bad:
+            fail(f"lm-sharded: restored leaves not placed as saved, e.g. {bad[:4]}")
+        same({"params": dict(model.named_parameters()), "opt": state}, restored, tree["opt"],
+             "lm-sharded: the restored checkpoint")
+        del model, state
+        gc.collect()
+        restored, rstate, r_m, r_s = steps(restored, tree["opt"], step_fn, TRAIN_CRASH, 1,
+                                           mesh, refused)
+        got = [(m["loss"], m["grad_norm"]) for m in r_m]
+        if got != metrics_of(TRAIN_CRASH, TRAIN_CRASH + 1):
+            fail(f"lm-sharded: step {TRAIN_CRASH + 1} on the restored state {got} != the "
+                 f"unsharded run's {metrics_of(TRAIN_CRASH, TRAIN_CRASH + 1)}")
+        log(f"lm-sharded {LM_ARCH}: checkpoint of the sharded state, {nbytes:,} bytes saved "
+            f"in {save_s:.2f}s, restored with shardings onto the mesh in {restore_s:.2f}s, "
+            f"every leaf bitwise; step {TRAIN_CRASH + 1} on it ({r_s[0]:.2f}s) {got}, bit for "
+            f"bit the unsharded run's")
+        summary.update({"ckpt_bytes": nbytes, "ckpt_save_s": save_s,
+                        "ckpt_restore_s": restore_s, "step3": r_m})
+        del restored, rstate, tree
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        PD.teardown()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if launched:
+        fail(f"lm-sharded: the sharded training launched Coconut kernels {launched}")
+    cells = finish_dryruns(torch, runs, out_dir, t_phase)
+    summary["dryrun"] = {tag: {k: res[k] for k in ("mem_per_device", "cost_per_device",
+                                                   "collective_bytes_per_device",
+                                                   "roofline_s", "bottleneck", "lower_s")}
+                         for tag, res in cells.items()}
+    summary["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"lm-sharded: phase {summary['phase_seconds']:.1f}s")
+    return summary
 
 
 def percentile(a, p):
@@ -3163,6 +3542,9 @@ def main(argv=None) -> int:
 
     got, summary["lm-train"] = phase_lm_train(torch, ops, train, args.seed)
     launches.update(got)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["lm-sharded"] = phase_lm_sharded(torch, ops, train, args.seed, summary["lm-train"])
     for key, c in shapes.most_common(16):
         log(f"main path: call {key} x{c}")
     timed, floor_ms = phase_timing(torch, ops, ref, shapes, worst)

@@ -30,6 +30,12 @@ int64 tensors holding the uint32 word values (torch has no ``<<`` for uint32
 on the CPU); :func:`keys_to_host` hands them to the host index as numpy
 uint32. Like the reference's ``ops.summarize``, it does not z-normalize,
 whatever ``cfg.znorm`` says.
+
+Shapes only: ``paa``, ``sax_and_keys`` (so ``summarize``) and ``mindist``
+given a ``FakeTensor`` (the dry run's, ``launch/dryrun.py``) run their
+plain versions on it, which compute the kernel's output shapes and dtypes
+from the fake inputs, count as the aten ops they are, and launch nothing.
+A real tensor, on the CPU or the card, never takes that branch.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from ..core.summarization import SummarizationConfig, breakpoints
 from . import ref
@@ -394,7 +401,7 @@ def paa(x: torch.Tensor, cfg: SummarizationConfig) -> torch.Tensor:
     dev, b = x.device, x.shape[0]
     if b == 0:  # empty batch: no launch
         return torch.zeros((0, w), dtype=torch.float32, device=dev)
-    if dev.type == "cpu":
+    if dev.type == "cpu" or is_fake(x):
         return ref.paa_ref(x, w)
     if dev.type != "cuda":
         raise ValueError(f"no paa for device {dev}")
@@ -414,7 +421,10 @@ def breakpoint_table(card_bits: int, dev: torch.device) -> torch.Tensor:
     """The 2^c - 1 sorted SAX breakpoints as an f32 tensor on ``dev``."""
     key = (card_bits, dev)
     if key not in _BREAKPOINTS:
-        _BREAKPOINTS[key] = torch.from_numpy(breakpoints(card_bits)).to(dev)
+        table = torch.from_numpy(breakpoints(card_bits)).to(dev)
+        if is_fake(table):  # made under a FakeTensorMode: not kept
+            return table
+        _BREAKPOINTS[key] = table
     return _BREAKPOINTS[key]
 
 
@@ -432,7 +442,7 @@ def sax_and_keys(p: torch.Tensor,
         return (torch.zeros((0, w), dtype=torch.int32, device=dev),
                 torch.zeros((0, nw), dtype=torch.int64, device=dev))
     bps = breakpoint_table(c, dev)
-    if dev.type == "cpu":
+    if dev.type == "cpu" or is_fake(p):
         return ref.sax_pack_ref(p, bps, c, nw)
     if dev.type != "cuda":
         raise ValueError(f"no sax_pack for device {dev}")
@@ -489,7 +499,7 @@ def mindist(q_paa: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     dev, (b, w) = lo.device, lo.shape
     if b == 0:  # empty batch: no launch
         return torch.zeros((0,), dtype=torch.float32, device=dev)
-    if dev.type == "cpu":
+    if dev.type == "cpu" or is_fake(lo):
         return ref.mindist_ref(q_paa, lo, hi, cfg.segment_len)
     if dev.type != "cuda":
         raise ValueError(f"no mindist for device {dev}")

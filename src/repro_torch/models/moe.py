@@ -16,6 +16,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from .common import dense_init
 
@@ -52,20 +53,11 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_mlp(p, x: torch.Tensor, dims: MoEDims) -> tuple[torch.Tensor, dict]:
-    """x: (B, S, D) -> (B, S, D). Returns (out, aux) with load-balance loss."""
-    b, s, d = x.shape
-    t = b * s
-    e, k = dims.n_experts, dims.top_k
-    dev = x.device
-    xf = x.reshape(t, d)
-    logits = xf.float() @ p["router"]  # (T, E), f32
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = top_k(probs, k)  # (T, K)
-    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
-
-    # capacity floor min(t, 8) keeps tiny decode batches drop-free
-    cap = max(math.ceil(t * k / e * dims.capacity_factor), min(t, 8))
+def _route(gate_idx: torch.Tensor, gate_vals: torch.Tensor, e: int, cap: int):
+    """The dispatch of (T, K) routed tokens into (E, cap) expert slots:
+    (disp, gates, flat expert ids, kept assignments)."""
+    t, k = gate_idx.shape
+    dev = gate_idx.device
     # flatten (token, k) assignments and sort by expert
     flat_e = gate_idx.reshape(-1)  # (T*K,)
     flat_t = torch.arange(t, device=dev).repeat_interleave(k)
@@ -83,6 +75,38 @@ def moe_mlp(p, x: torch.Tensor, dims: MoEDims) -> tuple[torch.Tensor, dict]:
     gates = torch.zeros((e, cap + 1), dtype=torch.float32, device=dev)
     gates[se, slot] = torch.where(keep, sg, 0.0)
     gates = gates[:, :cap]
+    return disp, gates, flat_e, keep
+
+
+def _routed(gate_idx, gate_vals, e: int, cap: int):
+    """``_route``; on ``DTensor``s (a sharded step) it runs on every rank
+    over the gate ids and values replicated, and returns replicated
+    ``DTensor``s: ``DTensor`` has no sharding rule for ``searchsorted`` or
+    for writing the slots into a tensor made here."""
+    if not isinstance(gate_idx, DTensor):
+        return _route(gate_idx, gate_vals, e, cap)
+    mesh = gate_idx.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    outs = _route(gate_idx.redistribute(mesh, rep).to_local(),
+                  gate_vals.redistribute(mesh, rep).to_local(), e, cap)
+    return tuple(DTensor.from_local(o, mesh, rep, run_check=False) for o in outs)
+
+
+def moe_mlp(p, x: torch.Tensor, dims: MoEDims) -> tuple[torch.Tensor, dict]:
+    """x: (B, S, D) -> (B, S, D). Returns (out, aux) with load-balance loss."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = dims.n_experts, dims.top_k
+    dev = x.device
+    xf = x.reshape(t, d)
+    logits = xf.float() @ p["router"]  # (T, E), f32
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = top_k(probs, k)  # (T, K)
+    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+
+    # capacity floor min(t, 8) keeps tiny decode batches drop-free
+    cap = max(math.ceil(t * k / e * dims.capacity_factor), min(t, 8))
+    disp, gates, flat_e, keep = _routed(gate_idx, gate_vals, e, cap)
 
     xpad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
     xin = xpad[disp]  # (E, C, D)

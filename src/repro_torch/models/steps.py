@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from . import shardctx
 from .transformer import ModelConfig, decode_step, forward, logits_fn, prefill
 
 
@@ -42,11 +43,16 @@ def _shift_labels(tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _xent(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
           mask: torch.Tensor) -> torch.Tensor:
-    """Masked mean cross-entropy."""
-    lf = logits.float()
+    """Masked mean cross-entropy. Under a sharding context the f32 logits
+    are pinned to (DP, None, "model"), where the reference pins its one-hot:
+    the vocab axis stays sharded into the logsumexp and the gather."""
+    lf = shardctx.constrain(logits.float(), shardctx.DP, None, "model")
     lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    nll = (lse - ll) * mask
+    # the gathered column keeps its trailing dim until the subtraction: a
+    # DTensor gather over a sharded vocab is a masked partial sum, whose
+    # reduction masks (..., 1)-shaped values only
+    ll = torch.gather(lf, -1, labels.long()[..., None])
+    nll = (lse[..., None] - ll)[..., 0] * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
@@ -115,7 +121,7 @@ def microbatched_grads(cfg: ModelConfig, tcfg: TrainConfig, params, batch: dict,
         return x.reshape((g, b // g) + tuple(x.shape[1:]))
 
     mbatch = {k: resh(v) for k, v in batch.items()}
-    acc = shard_g({k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    acc = shard_g({k: torch.zeros_like(p, dtype=torch.float32)
                    for k, p in params.named_parameters()})
     loss_acc = torch.zeros((), dtype=torch.float32, device=next(params.parameters()).device)
     auxs = []

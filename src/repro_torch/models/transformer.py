@@ -25,6 +25,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from . import shardctx
 from .attention import (
     MLADims,
     decode_attention,
@@ -327,6 +328,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict):
     else:
         x = params["embed"][batch["tokens"]]
     x = x.to(COMPUTE_DTYPE)
+    x = shardctx.constrain(x, shardctx.DP, None, None)
     positions = torch.arange(x.shape[1], device=x.device)
     return x, positions
 
@@ -395,6 +397,8 @@ def forward(params, cfg: ModelConfig, batch: dict, *, want_cache: bool = False,
 def logits_fn(params, cfg: ModelConfig, hidden) -> torch.Tensor:
     """LM head with vocab padding masked out. hidden: (..., D) -> (..., Vp)."""
     logits = (hidden @ params["lm_head"]).float()
+    spec = (shardctx.DP,) + (None,) * (logits.ndim - 2) + ("model",)
+    logits = shardctx.constrain(logits, *spec)
     if cfg.vocab_padded != cfg.vocab:
         pad_mask = torch.where(
             torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab, 0.0, -1e9

@@ -10,6 +10,14 @@ atomically renamed, so a crash mid-save never corrupts the latest
 checkpoint; ``latest_step`` only sees complete directories. An async mode
 hands the host copy to a writer thread so the training loop does not stall.
 
+Sharded trees: ``save`` takes ``DTensor`` leaves. Every rank gathers each
+one whole (``full_tensor``, a collective) on the caller's thread, never on
+the writer thread, and only rank 0 writes, so the files are the same as
+an unsharded save's. ``restore(..., shardings=)`` places each leaf with
+``distribute_tensor`` on the mesh and placements given for it: a
+checkpoint saved under one mesh shape restores onto another (elastic
+restore).
+
 A tree is made of dicts, lists and tensors (or numpy arrays). A module
 stands for its parameters, and a dict keyed by the port's parameter names
 (``groups.g.j.attn.wq``, as the optimizer's states are) for the
@@ -27,6 +35,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..models.weights import port_named, reference_tree, tensor_to_numpy
 
@@ -111,12 +121,26 @@ def _world_size() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
+def _rank() -> int:
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _host(t):
+    """A leaf's host copy (a ``DTensor`` gathered whole first: every rank
+    must call this for it)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().cpu() if isinstance(t, torch.Tensor) else t
+
+
 def save(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[dict] = None,
          async_write: bool = False):
     """Save a tree checkpoint. Blocks unless async_write (then returns the
-    writer thread; the host copy is taken before it starts)."""
-    leaves = _flatten_with_paths(_canonical(tree, lambda t: t.detach().cpu()
-                                            if isinstance(t, torch.Tensor) else t))
+    writer thread; the host copy is taken before it starts). With
+    ``DTensor`` leaves every rank calls this, and only rank 0 writes
+    (other ranks return None)."""
+    leaves = _flatten_with_paths(_canonical(tree, _host))
     host = []
     for name, leaf in leaves:
         arr, dtype_name = _to_storable(leaf)
@@ -145,6 +169,8 @@ def save(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[dict] = None,
             shutil.rmtree(final)
         os.rename(tmp, final)
 
+    if _rank() != 0:
+        return None
     if async_write:
         t = threading.Thread(target=write, daemon=True)
         t.start()
@@ -164,22 +190,45 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like: Any, *, device=None) -> tuple[Any, dict]:
+def _is_sharding(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], DeviceMesh)
+
+
+def _distribute(tree, shardings):
+    """Each leaf of ``tree`` placed by its ``(mesh, placements)`` in the
+    matching tree ``shardings`` (dicts by key, lists in order)."""
+    if _is_sharding(shardings):
+        return distribute_tensor(tree, shardings[0], list(shardings[1]))
+    if isinstance(tree, dict):
+        return {k: _distribute(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_distribute(v, s) for v, s in zip(tree, shardings)]
+    return tree
+
+
+def restore(ckpt_dir: str, step: int, like: Any, *, device=None,
+            shardings: Any = None) -> tuple[Any, dict]:
     """Restore into the structure of ``like``, whose leaves are tensors
     (``meta`` tensors for shapes and dtypes only). Each leaf is cast to its
     ``like`` leaf's dtype and placed on ``device`` (default: the device of
-    ``like``'s first leaf, which must then not be ``meta``).
+    ``like``'s first leaf, which must then not be ``meta``). With
+    ``shardings`` (a tree of ``(mesh, placements)`` matching the returned
+    tree: a module's or parameter-name dict's node keyed by parameter name)
+    each leaf comes back a ``DTensor`` placed on that mesh instead; use this
+    to restore onto another mesh than the one that saved.
 
     Returns (tree, manifest_extra)."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    if device is None:
+    if shardings is not None:
+        device = "cpu"  # distribute_tensor moves each leaf to its mesh
+    elif device is None:
         device = _first_leaf(like).device
     device = torch.device(device)
     if device.type == "meta":
         raise ValueError("restoring onto meta: pass the device to place the leaves on")
-    canonical = _canonical(like, lambda t: t.detach().to("meta"))
+    canonical = _canonical(like, lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"))
     dtype_by_name = {l["name"]: l["dtype"] for l in manifest["leaves"]}
     loaded = {}
     for name, ref_leaf in _flatten_with_paths(canonical):
@@ -191,13 +240,16 @@ def restore(ckpt_dir: str, step: int, like: Any, *, device=None) -> tuple[Any, d
                 f"{tuple(ref_leaf.shape)}"
             )
         loaded[name] = arr.to(dtype=ref_leaf.dtype).to(device)
-    return _rebuild(like, canonical, loaded), manifest.get("extra", {})
+    tree = _rebuild(like, canonical, loaded)
+    if shardings is not None:
+        tree = _distribute(tree, shardings)
+    return tree, manifest.get("extra", {})
 
 
-def restore_latest(ckpt_dir: str, like: Any, *, device=None):
+def restore_latest(ckpt_dir: str, like: Any, *, device=None, shardings: Any = None):
     """Returns (step, tree, extra) or None when no checkpoint exists."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None
-    tree, extra = restore(ckpt_dir, step, like, device=device)
+    tree, extra = restore(ckpt_dir, step, like, device=device, shardings=shardings)
     return step, tree, extra

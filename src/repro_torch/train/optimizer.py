@@ -53,7 +53,7 @@ class AdamW:
 
     def init(self, params) -> dict:
         def zeros():
-            return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            return {k: torch.zeros_like(p, dtype=torch.float32)
                     for k, p in _named(params).items()}
 
         state = {"m": zeros(), "v": zeros()}

@@ -923,3 +923,118 @@ def test_cuda_train_crash_resume_is_bitwise(cuda, arch, tmp_path, capsys):
     for k, tree in straight["opt"].items():
         for name, t in tree.items():
             assert torch.equal(t, resumed["opt"][k][name]), (k, name)
+
+
+# ----------------------------------------------------- the sharded launch layer
+def _two_steps(cfg, device, mesh=None):
+    """Two smoke train steps (grad_accum 2, remat) from the seed's weights:
+    unsharded, or with parameters, AdamW state and batch ``DTensor``s on
+    ``mesh`` under the ``opt`` variant's ZeRO-1 hooks. Returns the metrics
+    and the parameters and states, whole."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import specs
+    from repro_torch.models import shardctx
+    from repro_torch.models.steps import TrainConfig, make_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+
+    def whole(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+    model = init_params(cfg, torch.Generator(device).manual_seed(4), device)
+    opt = AdamW(AdamWConfig(warmup_steps=2, total_steps=4))
+    hooks = (None, None)
+    if mesh is not None:
+        pspecs = specs.param_specs(model, mesh)
+        specs.distribute_model(model, pspecs, mesh)
+        hooks = specs.zero1_hooks(model, pspecs, mesh)
+    state = opt.init(model)
+    step = make_train_step(cfg, TrainConfig(grad_accum=2, remat=True), opt, *hooks)
+    metrics = []
+    for s in range(2):
+        batch = _train_batch(cfg, device)
+        if mesh is None:
+            model, state, m = step(model, state, batch, s)
+        else:
+            batch = specs.distribute_tree(batch, specs.batch_specs(batch, mesh, False), mesh)
+            with shardctx.ctx(mesh, ("data",)), implicit_replication(), specs.ReplicateRefused():
+                model, state, m = step(model, state, batch, s)
+        metrics.append({k: float(whole(v)) for k, v in m.items()})
+    params = {k: whole(p) for k, p in model.named_parameters()}
+    states = {f"{k}.{n}": whole(t) for k, tree in state.items() for n, t in tree.items()}
+    return metrics, params, states
+
+
+def test_cuda_fake_store_and_dry_run_on_the_card(cuda):
+    """The dry run's fake group imports and runs under the card's torch: a
+    (2, 2) mesh of a 4-rank fake group on the card's device type, one
+    smoke cell of every kind lowered with its result keys."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = r"""
+import sys
+from unittest import mock
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch import configs
+from repro_torch.launch import dryrun
+dryrun.fake_group(4, "cuda")
+mk = lambda multi_pod=False, device_type="cuda": init_device_mesh(
+    device_type, (2, 2), mesh_dim_names=("data", "model"))
+with mock.patch.object(dryrun, "make_production_mesh", mk), \
+        mock.patch.object(dryrun, "get_config", lambda a: configs.get_config(a, smoke=True)), \
+        mock.patch.object(dryrun, "SHAPES", configs.SMOKE_SHAPES):
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        r = dryrun.lower_cell("smollm-360m", shape, False, "opt", "cuda")
+        assert r["cost_per_device"]["flops"] > 0 and r["mem_per_device"]["args_bytes"] > 0
+        print("CELL", shape, r["bottleneck"])
+"""
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run([sys.executable, "-c", code], env={**__import__("os").environ,
+                         "PYTHONPATH": str(src)}, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    assert out.stdout.count("CELL ") == 3
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-3b"])
+def test_cuda_sharded_step_on_one_rank_equals_unsharded(nccl_mesh, arch):
+    """A smoke train step sharded on a one-rank NCCL mesh (1, 1) is bit for
+    bit the unsharded step: metrics, parameters, m and v."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, smoke=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = _two_steps(cfg, torch.device("cuda"))
+        mesh = nccl_mesh.make_mesh((1, 1), ("data", "model"))
+        assert dist.get_backend() == "nccl"
+        got = _two_steps(cfg, torch.device("cuda"), mesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert got[0] == want[0]
+    for a, b in zip(got[1:], want[1:]):
+        assert sorted(a) == sorted(b)
+        for name in a:
+            assert torch.equal(a[name], b[name]), name
+
+
+def test_cuda_tensors_never_take_the_shape_functions(cuda):
+    """paa, sax_and_keys and mindist on real card tensors launch their
+    kernels (the fake-tensor branch is for the dry run only)."""
+    from repro_torch.core import SummarizationConfig
+
+    cfg = SummarizationConfig(series_len=64, n_segments=8, card_bits=4)
+    x = torch.randn((37, 64), generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    ops.reset_launches()
+    p = ops.paa(x, cfg)
+    sym, _ = ops.sax_and_keys(p, cfg)
+    lo = torch.zeros((37, 8), device=cuda)
+    ops.mindist(p[0].contiguous(), lo, lo + 1.0, cfg)
+    assert {k: ops.LAUNCHES[k] for k in ("paa", "sax_pack", "mindist")} == {
+        "paa": 1, "sax_pack": 1, "mindist": 1}
+    assert sym.device.type == "cuda"

@@ -28,7 +28,9 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
                  "core.recommender", "core.autotune", "core.gateway",
                  "core.distributed", "models.transformer", "models.weights",
                  "configs", "train.optimizer", "train.checkpoint",
-                 "train.compression", "data.pipeline", "launch.train"):
+                 "train.compression", "data.pipeline", "launch.train",
+                 "launch.dryrun", "launch.specs", "launch.mesh",
+                 "launch.hlo_analysis", "models.shardctx"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
