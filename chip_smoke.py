@@ -36,7 +36,8 @@ Phases, each reported on lines of its own:
             latency percentiles come from the other 32. Every exact-tier
             answer must equal an f64 brute force over the window, computed
             on the card. Then exact int8 serving of a stream of repeating
-            events, where the int8 certificate holds, checked the same way.
+            events (100 ingest batches, 512,000 series, 20 served batches),
+            where the int8 certificate holds, checked the same way.
    Phases 5-10 run right after the exact f32 serve phase, on its index.
 5. summarize: paa -> sax_pack over the exact f32 phase's 1,024,000 series
             and a query batch: PAA values, symbols and keys bitwise those of
@@ -244,8 +245,12 @@ Phases, each reported on lines of its own:
             device type. Fails on a FAIL line, unless every cell was written,
             unless each LM cell's ``args_bytes`` equals the local shard
             bytes of its inputs under the specs (computed here from the
-            specs and the shapes), and unless ``0 < useful_flops_ratio <=
-            1.05``. Logged per cell: memory per device, FLOPs and bytes per
+            specs and the shapes), unless ``0 < useful_flops_ratio <=
+            1.05``, and unless the single-pod baseline cells hold to the
+            reference's own counts (``REF_*``, literals beside the command
+            that gave them): decode_32k's memory per device at most 2x and
+            its collective bytes within 2x, train_4k's all-reduce bytes at
+            most 2x. Logged per cell: memory per device, FLOPs and bytes per
             device, collective bytes by kind, the roofline terms and the
             bottleneck. (b) smollm-360m at full width, phase 16's run (its
             seed, 16 x 4,096 tokens a step in two microbatches, remat,
@@ -263,6 +268,22 @@ Phases, each reported on lines of its own:
             norm must be phase 16's step 3's bit for bit. Logged: s/step and
             peak GiB beside phase 16's, the ops run replicated, the
             checkpoint's bytes and seconds.
+
+18. sanitized: run after phase 17 and before the timing phase. The port's
+            runtime sanitizer (``repro_torch.analysis.sanitize``: ranked
+            registry and engine locks, the engine that already exists
+            included, and sealed snapshots and plans) armed in this
+            process, then the Coconut main path on the first cell's data:
+            ``serve.py`` exact f32 with ``--ingest async`` (flush, external
+            sort and merge on the background worker), 20 ingest batches of
+            5,120 series of length 256 with a 16-query batch after every
+            fifth, then ``serve.py --gateway`` over 12 batches (the last
+            third ingested in the background) with 96 clients. Fails on a
+            ``SanitizerError`` (an ingest worker's included), on a served
+            batch that launched no ``screen_select``, on an exact answer
+            that is not the f64 brute force, or on a gateway request left
+            unanswered; the sanitizer is disarmed before the timing phase.
+            Logged: its launches and seconds.
 
 The profiler sometimes returns a trace with no device record of a call that
 ran on the card (F5): every traced check (phases 6, 14 and 16) then traces a
@@ -316,6 +337,9 @@ TRACE_EVERY = 5  # every fifth served batch runs under the profiler
 FALLBACK_LIMIT = {("exact", "f32"): 0.01, ("exact", "int8"): 0.999,
                   ("approx", "f32"): 0.01, "repeats": 0.6}
 REPEATS = 5  # recordings of each repeating source (= k of its queries)
+# ingest batches of the repeating events' stream: cut from BATCHES (200) to
+# keep the script inside its time limit with phase 18
+REPEATS_BATCHES = 100
 REPEAT_NOISE = 0.005
 ENGINE_COUNTERS = ("calls", "screened", "fallbacks", "arena_bytes", "h2d_bytes",
                    "uploads")
@@ -459,6 +483,20 @@ DRYRUN_RUNS = tuple((variant, mesh, shapes, (variant, mesh, shapes) == (
     for variant in ("baseline", "opt") for mesh in ("single", "multi")
     for shapes in ("train_4k", "prefill_32k,decode_32k"))
 DRYRUN_TIMEOUT = 600  # seconds for the dry-run subprocesses
+# the reference's own counts of smollm-360m's single-pod baseline cells, per
+# device, which phase 17(a) holds the port's to (within 2x; the memory from
+# above only: the reference's adds XLA's CPU temporaries of the whole cache).
+# Each from `PYTHONPATH=src JAX_PLATFORMS=cpu python -m repro.launch.dryrun
+# --arch smollm-360m --mesh single --shape <cell> --out DIR` (jax 0.4, CPU).
+REF_DECODE_32K_TOTAL_GB = 2.418  # --shape decode_32k: mem_per_device.total_gb
+REF_DECODE_32K_COLLECTIVE_BYTES = 73_625_600.0  # --shape decode_32k
+REF_TRAIN_4K_ALL_REDUCE_BYTES = 67_510_106_216.0  # --shape train_4k
+# phase 18, the sanitized run: ingest batches with a 16-query batch after
+# every fifth, then a gateway run ingesting the last third in the background
+SANITIZED_BATCHES = 20
+SANITIZED_GATEWAY_BATCHES = 12
+SANITIZED_GATEWAY_WINDOW = 6
+SANITIZED_REQUESTS = 96
 RETRACES = 2  # repeats traced when a trace came back with no device record
 HOOK_SERIES_LEN = 256  # series_view's length for the Coconut hook
 T_START = time.perf_counter()
@@ -1155,7 +1193,7 @@ def phase_repeats(torch, ops, engine, shapes):
     name = "serve exact int8 repeating events"
     per = BATCH_SIZE // REPEATS
     rng = np.random.default_rng(7)
-    bases = seismic(BATCHES * per, SERIES_LEN, seed=7, quake_frac=1.0)
+    bases = seismic(REPEATS_BATCHES * per, SERIES_LEN, seed=7, quake_frac=1.0)
     idx = StreamingIndex(StreamConfig(
         scheme="BTP", summarization=SummarizationConfig(
             series_len=SERIES_LEN, n_segments=16, card_bits=8),
@@ -1164,7 +1202,7 @@ def phase_repeats(torch, ops, engine, shapes):
     lat, served = [], []
     t0 = time.perf_counter()
     with probe_tier(torch, ops, engine, "window_knn_batch", shapes) as rec:
-        for b in range(BATCHES):
+        for b in range(REPEATS_BATCHES):
             src = np.repeat(np.arange(b * per, (b + 1) * per), REPEATS)
             rng.shuffle(src)
             x = bases[src] + (REPEAT_NOISE * rng.standard_normal(
@@ -1651,22 +1689,24 @@ def epoch_ids(snap):
     return np.sort(np.concatenate(parts).astype(np.int64))
 
 
-def check_gateway_answers(torch, out, snaps):
+def check_gateway_answers(torch, out, snaps, batches=BATCHES, window=WINDOW):
     """Gates (c)-(e): exact windowed answers against the f64 brute force
     over the window's rows; exact whole-history answers against the f64
     brute force over the rows their pinned epoch held; approximate answers
     inside their window (whole-history ones among their epoch's rows).
+    ``batches`` and ``window``: the run's ``--batches`` and ``--window``.
     Returns the counts checked."""
     import numpy as np
 
     idx, Q = out["index"], out["queries"]
     X = torch.from_numpy(idx.raw.scan()).to(DEVICE)
-    pre = max(1, (2 * BATCHES) // 3)
-    lo, hi = (pre - WINDOW) * BATCH_SIZE, pre * BATCH_SIZE
+    pre = max(1, (2 * batches) // 3)
+    first = max(0, pre - window)
+    lo, hi = first * BATCH_SIZE, pre * BATCH_SIZE
     groups = collections.defaultdict(list)  # (kind, epoch) -> request numbers
     for i, (kw, r) in enumerate(zip(out["requests"], out["responses"])):
         windowed = "window" in kw
-        if windowed and kw["window"] != (pre - WINDOW, pre - 1):
+        if windowed and kw["window"] != (first, pre - 1):
             fail(f"gateway: request {i} asked window {kw['window']}")
         if r.tier_served == "exact":
             groups[("window", 0) if windowed else ("history", r.epoch)].append(i)
@@ -3027,6 +3067,29 @@ def start_dryruns(out_dir):
     return runs
 
 
+def check_reference_counts(res):
+    """Phase 17(a)'s hold of a single-pod baseline cell to the reference's
+    counts (``REF_*``): decode_32k's memory at most 2x the reference's and
+    its collective bytes within 2x either way; train_4k's all-reduce bytes
+    at most 2x."""
+    tag = f"lm-sharded dry run {res['shape']} (16x16, baseline)"
+    if res["shape"] == "decode_32k":
+        gb, coll = res["mem_per_device"]["total_gb"], res["collective_bytes_per_device"]
+        ratio = coll / REF_DECODE_32K_COLLECTIVE_BYTES
+        log(f"{tag}: {gb} GB/device against the reference's {REF_DECODE_32K_TOTAL_GB}; "
+            f"collective bytes {coll:.6g} against {REF_DECODE_32K_COLLECTIVE_BYTES:.6g} "
+            f"(x{ratio:.4f})")
+        if gb > 2 * REF_DECODE_32K_TOTAL_GB or not 0.5 <= ratio <= 2.0:
+            fail(f"{tag}: {gb} GB/device or x{ratio:.4f} the reference's collective "
+                 "bytes, past 2x")
+    elif res["shape"] == "train_4k":
+        ar = res["collectives"].get("all-reduce", {}).get("bytes", 0.0)
+        log(f"{tag}: all-reduce bytes {ar:.6g} against the reference's "
+            f"{REF_TRAIN_4K_ALL_REDUCE_BYTES:.6g} (x{ar / REF_TRAIN_4K_ALL_REDUCE_BYTES:.4f})")
+        if ar > 2 * REF_TRAIN_4K_ALL_REDUCE_BYTES:
+            fail(f"{tag}: all-reduce bytes {ar:.6g}, past 2x the reference's")
+
+
 def finish_dryruns(torch, runs, out_dir, t_start):
     """Wait for the dry runs and check them (docstring phase 17(a))."""
     from repro_torch.configs import get_config
@@ -3063,6 +3126,8 @@ def finish_dryruns(torch, runs, out_dir, t_start):
         if not 0 < res["useful_flops_ratio"] <= 1.05:
             fail(f"lm-sharded dry run {path.stem}: useful_flops_ratio "
                  f"{res['useful_flops_ratio']} outside (0, 1.05]")
+        if variant == "baseline" and res["mesh"] == "16x16":
+            check_reference_counts(res)
     want_cells = sum(len(shapes.split(",")) for _, _, shapes, _ in DRYRUN_RUNS) + 3
     if len(cells) != want_cells:
         fail(f"lm-sharded dry run: {len(cells)} cells written, not {want_cells}")
@@ -3279,6 +3344,118 @@ def _lm_sharded(torch, ops, train, seed, reference, runs, out_dir, t_phase):
     summary["phase_seconds"] = time.perf_counter() - t_phase
     log(f"lm-sharded: phase {summary['phase_seconds']:.1f}s")
     return summary
+
+
+# ------------------------------------------------------ phase 18: sanitized
+def _sanitizer_error(exc):
+    """The ``SanitizerError`` in an exception's chain (an ingest worker's is
+    re-raised as the cause of a ``RuntimeError``), or None."""
+    from repro_torch.analysis.sanitize import SanitizerError
+
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        if isinstance(exc, SanitizerError):
+            return exc
+        seen.add(id(exc))
+        exc = exc.__cause__ or exc.__context__
+    return None
+
+
+def phase_sanitized(torch, ops, serve, engine, shapes):
+    """The Coconut main path with the port's runtime sanitizer armed
+    (docstring phase 18). Returns the phase's launches and summary."""
+    from repro_torch.analysis import sanitize
+
+    t0 = time.perf_counter()
+    sanitize.install()
+    try:
+        if not isinstance(engine._lock, sanitize.RankedLock):
+            fail("sanitized: the engine that predates install() kept a plain lock")
+        launches, summary = _sanitized(torch, ops, serve, engine, shapes)
+    except Exception as e:  # noqa: BLE001 - reported, then the phase fails
+        err = _sanitizer_error(e)
+        fail(f"sanitized: {type(err or e).__name__}: {err or e}")
+    finally:
+        sanitize.uninstall()
+    if sanitize.installed():
+        fail("sanitized: the sanitizer is still armed after the phase")
+    summary["seconds"] = time.perf_counter() - t0
+    log(f"sanitized: {summary['seconds']:.1f}s under the sanitizer, launches "
+        f"{dict(launches)}; disarmed")
+    return launches, summary
+
+
+def _sanitized(torch, ops, serve, engine, shapes):
+    """Phase 18's runs, the sanitizer armed: serve with async ingest, then a
+    short gateway run with background ingest."""
+    argv = ["--scheme", "BTP", "--batches", str(SANITIZED_BATCHES),
+            "--batch-size", str(BATCH_SIZE), "--series-len", str(SERIES_LEN),
+            "--query-batch", str(QUERY_BATCH), "--window", str(WINDOW),
+            "--k", str(K), "--tier", "exact", "--n-blocks", str(N_BLOCKS),
+            "--screen-dtype", "f32", "--storage", "model", "--ingest", "async",
+            "--device", DEVICE]
+    args = serve.build_parser().parse_args(argv)
+    log(f"sanitized: python -m repro_torch.launch.serve {' '.join(argv)}")
+    t0 = time.perf_counter()
+    with probe_tier(torch, ops, engine, "window_knn_batch", shapes) as rec:
+        out = serve.serve_coconut(args)
+        torch.cuda.synchronize()
+    idx = out["index"]
+    try:
+        idx.close()  # stops the ingest worker; a latched failure is raised here
+        wall = time.perf_counter() - t0
+        if idx.raw.n != SANITIZED_BATCHES * BATCH_SIZE:
+            fail(f"sanitized: ingested {idx.raw.n} series")
+        for i, calls in enumerate(rec["calls"]):
+            if calls.get("screen_select", 0) == 0:
+                fail(f"sanitized: served batch {i + 1} launched no screen ({calls})")
+        X = torch.from_numpy(idx.raw.scan()).to(DEVICE)
+        for b, t0b, t1b, qs, ids, _ in out["served"]:
+            lo, hi = t0b * BATCH_SIZE, (t1b + 1) * BATCH_SIZE
+            check_exact(torch, X[lo:hi], qs, torch.from_numpy(ids).to(DEVICE) - lo,
+                        f"sanitized batch {b + 1}")
+        del X
+    finally:
+        del out, idx
+    launches = collections.Counter(rec["launches"])
+    summary = {"served_batches": rec["n"], "serve_launches": dict(rec["launches"]),
+               "serve_seconds": wall}
+    log(f"sanitized: serve with async ingest, {rec['n']} served batches in {wall:.1f}s, "
+        f"each launched screen_select, answers the f64 brute force; launches "
+        f"{dict(rec['launches'])}")
+    gargv = ["--gateway", "--scheme", "BTP", "--batches", str(SANITIZED_GATEWAY_BATCHES),
+             "--batch-size", str(BATCH_SIZE), "--series-len", str(SERIES_LEN),
+             "--query-batch", str(GATEWAY_RUNG), "--window", str(SANITIZED_GATEWAY_WINDOW),
+             "--k", str(K), "--arrival-rate", str(GATEWAY_RATE),
+             "--deadline-ms", str(GATEWAY_DEADLINE_MS), "--slo-p99-ms", str(GATEWAY_SLO_MS),
+             "--requests", str(SANITIZED_REQUESTS), "--screen-dtype", "f32",
+             "--no-prewarm", "--device", DEVICE]
+    gargs = serve.build_parser().parse_args(gargv)
+    log(f"sanitized: python -m repro_torch.launch.serve {' '.join(gargv)}")
+    t0 = time.perf_counter()
+    with probe_gateway(ops) as grec:
+        gout = serve.serve_gateway(gargs)
+    gwall = time.perf_counter() - t0
+    if len(gout["responses"]) != SANITIZED_REQUESTS or \
+            gout["index"].raw.n != SANITIZED_GATEWAY_BATCHES * BATCH_SIZE:
+        fail(f"sanitized gateway: answered {len(gout['responses'])} of "
+             f"{SANITIZED_REQUESTS}, ingested {gout['index'].raw.n}")
+    checked = check_gateway_answers(torch, gout, grec["snaps"],
+                                    batches=SANITIZED_GATEWAY_BATCHES,
+                                    window=SANITIZED_GATEWAY_WINDOW)
+    glaunches = collections.Counter(grec["client"])
+    glaunches.update(grec["shadow"])
+    launches.update(glaunches)
+    summary.update({"gateway_requests": SANITIZED_REQUESTS, "gateway_checked": checked,
+                    "gateway_launches": dict(glaunches), "gateway_seconds": gwall,
+                    "gateway_epochs_pinned": len(grec["snaps"])})
+    log(f"sanitized: gateway with background ingest, {SANITIZED_REQUESTS} requests in "
+        f"{gwall:.1f}s over {len(grec['snaps'])} pinned epochs, answers checked {checked}, "
+        f"measured launches {dict(glaunches)}")
+    del gout, grec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, summary
 
 
 def percentile(a, p):
@@ -3545,6 +3722,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     summary["lm-sharded"] = phase_lm_sharded(torch, ops, train, args.seed, summary["lm-train"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, summary["sanitized"] = phase_sanitized(torch, ops, serve, engine, shapes)
+    launches.update(got)
     for key, c in shapes.most_common(16):
         log(f"main path: call {key} x{c}")
     timed, floor_ms = phase_timing(torch, ops, ref, shapes, worst)

@@ -58,3 +58,13 @@ __all__ = [
     "WorkloadKey", "knob_grid", "workload_key",
     "Gateway", "GatewayConfig", "GatewayStats", "Response", "Ticket",
 ]
+
+# Runtime sanitizer (lock-order assertions + snapshot seals): opt-in via
+# env var, so a run can keep the invariants armed while plain imports stay
+# untouched. See repro_torch.analysis.sanitize.
+import os as _os
+
+if _os.environ.get("REPRO_SANITIZE") == "1":
+    from ..analysis.sanitize import install as _sanitize_install
+
+    _sanitize_install()

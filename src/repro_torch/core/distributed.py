@@ -166,7 +166,7 @@ def _lex_first(v: torch.Tensor, k: int) -> torch.Tensor:
 def _lex_sort_perm(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     """The stable lexicographic order of rows under ``keys`` (first key
     most significant): stable sorts from the last key to the first."""
-    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
+    perm = torch.arange(keys[0].shape[0], dtype=torch.int64, device=keys[0].device)
     for key in reversed(keys):
         perm = perm[torch.sort(key[perm], stable=True).indices]
     return perm
@@ -194,7 +194,7 @@ def build_local(series: torch.Tensor, ids: torch.Tensor, cfg: DistBuildConfig,
     samp = w0[::stride][: min(cfg.samples_per_shard, ln)]
     allsamp = _gather(samp, group).reshape(-1)
     ssorted = torch.sort(allsamp).values
-    qidx = (torch.arange(1, nsh, device=dev) * allsamp.shape[0]) // nsh
+    qidx = (torch.arange(1, nsh, dtype=torch.int64, device=dev) * allsamp.shape[0]) // nsh
     splitters = ssorted[qidx]  # (nsh-1,)
 
     # --- bucket by most-significant key word (ties stay together)
@@ -202,8 +202,8 @@ def build_local(series: torch.Tensor, ids: torch.Tensor, cfg: DistBuildConfig,
     cap = max(1, int(ln / nsh * cfg.capacity_slack))
     order = torch.sort(bucket, stable=True).indices
     sbucket = bucket[order]
-    start = torch.searchsorted(sbucket, torch.arange(nsh, device=dev))
-    pos = torch.arange(ln, device=dev) - start[sbucket]
+    start = torch.searchsorted(sbucket, torch.arange(nsh, dtype=torch.int64, device=dev))
+    pos = torch.arange(ln, dtype=torch.int64, device=dev) - start[sbucket]
     overflow = (pos >= cap).sum()
     slot = pos.clamp_max(cap)  # slot `cap` is the shared trash slot
 

@@ -43,7 +43,7 @@ def _lex_topk(d2: torch.Tensor, k: int,
     fi = floor[1].to(si.dtype)[:, None]
     # the sorted row starts with every entry at or before the floor
     start = ((sv < fv) | ((sv == fv) & (si <= fi))).sum(1, keepdim=True)
-    pos = start + torch.arange(k, device=d2.device)[None, :]
+    pos = start + torch.arange(k, dtype=torch.int64, device=d2.device)[None, :]
     inside = pos < d2.shape[1]
     pos = pos.clamp_max(d2.shape[1] - 1)
     return (torch.where(inside, sv.gather(1, pos), torch.inf),
@@ -161,11 +161,11 @@ def sax_pack_ref(p: torch.Tensor, bps: torch.Tensor, card_bits: int,
     p = p.to(torch.float32)
     sym = (p[:, :, None] >= bps.to(torch.float32)[None, None, :]).sum(-1)
     b, w = sym.shape
-    shifts = torch.arange(card_bits - 1, -1, -1, device=p.device)
+    shifts = torch.arange(card_bits - 1, -1, -1, dtype=torch.int64, device=p.device)
     bits = (sym[:, None, :] >> shifts[None, :, None]) & 1  # (B, c, w)
     flat = bits.reshape(b, card_bits * w)
     flat = torch.nn.functional.pad(flat, (0, n_words * 32 - card_bits * w))
     weights = torch.ones((), dtype=torch.int64, device=p.device) << torch.arange(
-        31, -1, -1, device=p.device)
+        31, -1, -1, dtype=torch.int64, device=p.device)
     keys = (flat.reshape(b, n_words, 32) * weights).sum(-1)
     return sym.to(torch.int32), keys

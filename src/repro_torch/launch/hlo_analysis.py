@@ -33,6 +33,7 @@ the peak live local bytes (the port's own figure for temporaries; XLA's
 from __future__ import annotations
 
 import collections
+import gc
 import math
 import weakref
 
@@ -133,6 +134,10 @@ def _collective_kind(func) -> str | None:
     return "collective-permute"  # broadcast, scatter, point to point
 
 
+# the sharding propagator's methods that run ops to plan one (see __enter__)
+_PLANNING = ("propagate_op_sharding_non_cached", "_propagate_tensor_meta_non_cached")
+
+
 class _Local(TorchDispatchMode):
     """The inner mode: lets ``DTensor`` run, and sees its local work."""
 
@@ -144,7 +149,7 @@ class _Local(TorchDispatchMode):
         kwargs = kwargs or {}
         if _is_dtensor_call(types):
             return NotImplemented  # DTensor runs, and its local ops come back here
-        if isinstance(func, torch._ops.HigherOrderOperator):
+        if isinstance(func, torch._ops.HigherOrderOperator) or self.owner._shadow:
             return func(*args, **kwargs)
         out = func(*args, **kwargs)
         self.owner._local(func, args, out)
@@ -171,6 +176,48 @@ class CostMode(TorchDispatchMode):
         self.peak = 0
         self.refused = collections.Counter()
         self._inner = _Local(self)
+        self._shadow = 0
+        self._plan_failed = False
+
+    def __enter__(self):
+        # DTensor plans an op by running it, or its decomposition, on
+        # global-shape stand-ins (cached per process, so run or not by what
+        # ran before): those ops are no rank's work and are not counted. A
+        # plan that fails is caught by DTensor, which keeps its traceback in
+        # a reference cycle whose frames hold the caller's tensors until the
+        # collector runs: after such an op the young cycles are collected,
+        # and the collector is off otherwise, so the live bytes follow
+        # references, the same run to run and host to host
+        prop = DTensor._op_dispatcher.sharding_propagator
+        self._prop = prop
+        for name in _PLANNING:
+            plan = getattr(prop, name, None)
+            if plan is not None:
+                setattr(prop, name, self._shadowed(plan))
+        self._gc = gc.isenabled()
+        gc.disable()
+        return super().__enter__()
+
+    def _shadowed(self, plan):
+        def run(*a, **kw):
+            self._shadow += 1
+            try:
+                return plan(*a, **kw)
+            except BaseException:
+                self._plan_failed = True
+                raise
+            finally:
+                self._shadow -= 1
+
+        return run
+
+    def __exit__(self, *exc):
+        out = super().__exit__(*exc)
+        if self._gc:
+            gc.enable()
+        for name in _PLANNING:
+            self._prop.__dict__.pop(name, None)
+        return out
 
     def _count(self, func, args, out):
         f = op_flops(func, args, out)
@@ -193,6 +240,8 @@ class CostMode(TorchDispatchMode):
         if func.is_view:
             return
         for i, t in enumerate(_tensors(out)):
+            if t.is_meta:  # a planning stand-in, not a rank's buffer
+                continue
             ret = func._schema.returns
             if i < len(ret) and ret[i].alias_info is not None:
                 continue  # in place: the buffer exists already
@@ -209,6 +258,9 @@ class CostMode(TorchDispatchMode):
             gathered: list = []
             with self._inner:
                 out = call_replicating(func, args, kwargs, self.refused, gathered)
+            if self._plan_failed:
+                self._plan_failed = False
+                gc.collect(0)
             if gathered:
                 d = self.collectives.setdefault("all-gather", {"count": 0, "bytes": 0.0})
                 d["count"] += len(gathered)

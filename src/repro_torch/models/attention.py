@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from . import shardctx
 from .common import COMPUTE_DTYPE, dense_init, rms_norm, rope, zeros
 
 NEG_INF = -2.0e38
@@ -164,9 +165,34 @@ def sliding_attention(q, k, v, window: int) -> torch.Tensor:
     return o[:, :s]
 
 
+def _decode_split(q, k_cache, v_cache, valid) -> torch.Tensor:
+    """One-token decode over a cache whose slots are split over ranks
+    (context-parallel, as the reference's GSPMD lowering runs it): each
+    rank scores its own slots; only the scores' max, their exp-sum and the
+    partial context cross the mesh, never the cache. The result is the
+    softmax-weighted context over all slots, in another summation order."""
+    dp = shardctx.DP
+    q = shardctx.constrain(q, dp, None, None, None)
+    s = _gqa_scores(q, k_cache).float()  # (B, kv, g, 1, S), S split
+    s = s.masked_fill(~valid, NEG_INF)
+    m = shardctx.constrain(s.amax(dim=-1, keepdim=True), dp, None, None, None, None)
+    e = torch.exp(s - m)
+    l = shardctx.constrain(e.sum(dim=-1, keepdim=True), dp, None, None, None, None)
+    o = torch.einsum("bkgqs,bskh->bkgqh", e.to(COMPUTE_DTYPE), v_cache).float()
+    o = shardctx.constrain(o, dp, None, None, None, None)
+    o = (o / l).to(COMPUTE_DTYPE)  # (B, kv, g, 1, hd)
+    b, kvh, g, sq, hd = o.shape
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, kvh * g * hd)
+
+
 def decode_attention(q, k_cache, v_cache, pos: int) -> torch.Tensor:
     """One-token decode over a (B, S_max, kv, hd) cache; pos = #valid tokens
-    *after* writing the current token (attends to [0, pos))."""
+    *after* writing the current token (attends to [0, pos)). Under a
+    sharding context, a cache split over ranks along its slots is read
+    context-parallel (:func:`_decode_split`)."""
+    if shardctx.split(k_cache, 1):
+        valid = torch.arange(k_cache.shape[1], device=q.device) < pos
+        return _decode_split(q, k_cache, v_cache, valid)
     s = _gqa_scores(q, k_cache)  # (B, kv, g, 1, S_max)
     valid = torch.arange(k_cache.shape[1], device=q.device) < pos
     s = s.masked_fill(~valid, NEG_INF)
@@ -174,13 +200,17 @@ def decode_attention(q, k_cache, v_cache, pos: int) -> torch.Tensor:
 
 
 def decode_sliding_attention(q, k_ring, v_ring, pos: int, window: int) -> torch.Tensor:
-    """One-token decode over a (B, W, kv, hd) ring buffer (slot = t % W)."""
-    s = _gqa_scores(q, k_ring)  # (B, kv, g, 1, W)
+    """One-token decode over a (B, W, kv, hd) ring buffer (slot = t % W);
+    a ring split over ranks is read as :func:`decode_attention` reads a
+    split cache."""
     slot_t = torch.arange(window, device=q.device)
     # global time of ring slot j given the count `pos` (token t = pos-1
     # lives at slot (pos-1) % W): time = pos-1 - ((pos-1 - j) % W)
     t_of_slot = (pos - 1) - torch.remainder(pos - 1 - slot_t, window)
     valid = (t_of_slot >= 0) & (t_of_slot >= pos - window)
+    if shardctx.split(k_ring, 1):
+        return _decode_split(q, k_ring, v_ring, valid)
+    s = _gqa_scores(q, k_ring)  # (B, kv, g, 1, W)
     s = s.masked_fill(~valid, NEG_INF)
     return _gqa_out(_softmax(s), v_ring)
 
@@ -249,13 +279,18 @@ def mla_decode(p, x, positions, cache_ckv, cache_krope, pos: int, dims: MLADims,
     scores = q_nope @ W_uk . c_kv  +  q_rope . k_rope
     ctx    = softmax @ c_kv ; out = (ctx @ W_uv) @ wo
 
-    The new token is written into the caches in place, at slot pos-1.
+    The new token is written into the caches in place, at slot pos-1 (into
+    the one shard that holds it, where the slots are split over ranks).
     """
     b, s1, _ = x.shape  # s1 == 1
     h = n_heads
     q_nope, q_rope, c_kv_new, k_rope_new = mla_qkv(p, x, positions, dims, n_heads, theta)
-    cache_ckv[:, pos - 1] = c_kv_new[:, 0]
-    cache_krope[:, pos - 1] = k_rope_new[:, 0]
+    if shardctx.split(cache_ckv, 1):
+        shardctx.write_slot(cache_ckv, 1, pos - 1, c_kv_new)
+        shardctx.write_slot(cache_krope, 1, pos - 1, k_rope_new)
+    else:
+        cache_ckv[:, pos - 1] = c_kv_new[:, 0]
+        cache_krope[:, pos - 1] = k_rope_new[:, 0]
     # kv_up columns are head-major [nope | v] blocks: reshape before splitting
     w_u = p["kv_up"].reshape(dims.kv_lora, h, dims.nope_dim + dims.v_dim)
     w_uk = w_u[..., :dims.nope_dim]

@@ -13,9 +13,11 @@ Gradients are dicts keyed by the model's parameter names (its
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Shard
 
 from . import shardctx
 from .transformer import ModelConfig, decode_step, forward, logits_fn, prefill
@@ -41,17 +43,52 @@ def _shift_labels(tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return labels, mask
 
 
+def _split_logsumexp(lf: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over a last dim split over ranks, as GSPMD lowers it:
+    the max and the exp-sum cross the mesh (two all-reduces of one value a
+    row), not the logits. The max is a constant of the gradient."""
+    dp = shardctx.DP
+    spec = (dp,) + (None,) * (lf.ndim - 1)
+    m = shardctx.constrain(lf.detach().amax(dim=-1, keepdim=True), *spec)
+    se = shardctx.constrain(torch.exp(lf - m).sum(dim=-1, keepdim=True), *spec)
+    return (m + torch.log(se))[..., 0]
+
+
+def _split_label_logit(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The label's logit, (..., 1), from logits whose last dim (the vocab)
+    is split over ranks: each rank gathers the labels that fall in its
+    block, zero elsewhere, and the partial columns are all-reduced (the
+    reference's one-hot product, without the one-hot). ``DTensor``'s own
+    gather would leave a backward that scatters into whole logits."""
+    dp = shardctx.DP
+    labels = shardctx.constrain(labels.long(), dp, *(None,) * (labels.ndim - 1))
+    lo, size = shardctx.local_range(lf, lf.ndim - 1)
+    lab = labels.to_local()[..., None] - lo
+    inside = (lab >= 0) & (lab < size)
+    part = torch.gather(lf.to_local(), -1, lab.clamp(0, max(size - 1, 0))) * inside
+    places = [Partial() if isinstance(p, Shard) and p.dim == lf.ndim - 1 else p
+              for p in lf.placements]
+    ll = DTensor.from_local(part, lf.device_mesh, places, run_check=False,
+                            shape=lf.shape[:-1] + (1,),
+                            stride=tuple(math.prod(lf.shape[d + 1:-1]) for d in range(lf.ndim)))
+    return shardctx.constrain(ll, dp, *(None,) * (lf.ndim - 1))
+
+
 def _xent(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
           mask: torch.Tensor) -> torch.Tensor:
     """Masked mean cross-entropy. Under a sharding context the f32 logits
     are pinned to (DP, None, "model"), where the reference pins its one-hot:
     the vocab axis stays sharded into the logsumexp and the gather."""
     lf = shardctx.constrain(logits.float(), shardctx.DP, None, "model")
-    lse = torch.logsumexp(lf, dim=-1)
-    # the gathered column keeps its trailing dim until the subtraction: a
-    # DTensor gather over a sharded vocab is a masked partial sum, whose
-    # reduction masks (..., 1)-shaped values only
-    ll = torch.gather(lf, -1, labels.long()[..., None])
+    if shardctx.split(lf, lf.ndim - 1):
+        lse = _split_logsumexp(lf)
+        ll = _split_label_logit(lf, labels)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        # the gathered column keeps its trailing dim until the subtraction: a
+        # DTensor gather over a sharded vocab is a masked partial sum, whose
+        # reduction masks (..., 1)-shaped values only
+        ll = torch.gather(lf, -1, labels.long()[..., None])
     nll = (lse[..., None] - ll)[..., 0] * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
@@ -126,7 +163,11 @@ def microbatched_grads(cfg: ModelConfig, tcfg: TrainConfig, params, batch: dict,
     loss_acc = torch.zeros((), dtype=torch.float32, device=next(params.parameters()).device)
     auxs = []
     for i in range(g):
-        loss, aux, grads = lg(pg, {k: v[i] for k, v in mbatch.items()})
+        # a microbatch is a block of the batch's rows: placed over the dp
+        # axes again, as the whole batch was
+        mb = {k: shardctx.constrain(v[i], shardctx.DP, *(None,) * (v.ndim - 2))
+              for k, v in mbatch.items()}
+        loss, aux, grads = lg(pg, mb)
         grads = f32(grads)
         acc = {k: a + grads[k] / g for k, a in acc.items()}
         loss_acc = loss_acc + loss / g

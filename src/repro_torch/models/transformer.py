@@ -230,7 +230,26 @@ def _mlp_fwd(p, cfg: ModelConfig, x):
     if "moe" in p:
         out, aux = moe_mlp(p["moe"], x, cfg.moe)
         return out, aux["lb_loss"]
-    return swiglu(x, p["w1"], p["w3"], p["w2"]), 0.0
+    w1, w3, w2 = (shardctx.gather(p[n], shardctx.DP) for n in ("w1", "w3", "w2"))
+    return shardctx.constrain(swiglu(x, w1, w3, w2), shardctx.DP, None, None), 0.0
+
+
+def _attn_weights(ap) -> dict:
+    """The attention's projections as this layer uses them: under a
+    sharding context each is gathered over the dp axes where it is used
+    (FSDP, again in the remat recompute)."""
+    return {n: shardctx.gather(ap[n], shardctx.DP) for n in ("wq", "wk", "wv", "wo")}
+
+
+def _heads(y, cfg: ModelConfig, n: int):
+    """(B, S, n * hd) -> (B, S, n, hd). Under a context whose "model" axis
+    the heads do not divide, the projection is first gathered over it, as
+    the reference's GSPMD lowering gathers q, k and v (``DTensor`` splits no
+    sharded dim into heads that do not divide it): attention then runs
+    whole on each rank's batch."""
+    if not (shardctx.divides(cfg.n_heads, "model") and shardctx.divides(cfg.n_kv, "model")):
+        y = shardctx.constrain(y, shardctx.DP, None, None)
+    return y.reshape(y.shape[0], y.shape[1], n, cfg.hd)
 
 
 def _pad_cache_s(arr, cache_len):
@@ -284,11 +303,11 @@ def _layer_fwd(p, cfg: ModelConfig, kind: str, x, positions, want_cache: bool,
                 "krope": _pad_cache_s(k_rope.to(COMPUTE_DTYPE), cache_len),
             }
     else:
-        ap = p["attn"]
+        ap = _attn_weights(p["attn"])
         b, s, _ = x.shape
-        q = (h_in @ ap["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-        k = (h_in @ ap["wk"]).reshape(b, s, cfg.n_kv, cfg.hd)
-        v = (h_in @ ap["wv"]).reshape(b, s, cfg.n_kv, cfg.hd)
+        q = _heads(h_in @ ap["wq"], cfg, cfg.n_heads)
+        k = _heads(h_in @ ap["wk"], cfg, cfg.n_kv)
+        v = _heads(h_in @ ap["wv"], cfg, cfg.n_kv)
         if not cfg.encoder_only:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
@@ -297,7 +316,7 @@ def _layer_fwd(p, cfg: ModelConfig, kind: str, x, positions, want_cache: bool,
         else:
             o = gqa_attention(q, k, v, causal=not cfg.encoder_only,
                               impl=cfg.attention_impl)
-        x = x + o @ ap["wo"]
+        x = x + shardctx.constrain(o @ ap["wo"], shardctx.DP, None, None)
         if want_cache:
             if kind == "local":
                 w = cfg.window
@@ -322,11 +341,11 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict):
     if cfg.frontend == "audio":
         x = batch["features"].to(COMPUTE_DTYPE) @ params["w_front"]
     elif cfg.frontend == "vision":
-        te = params["embed"][batch["tokens"]]
+        te = shardctx.embed(params["embed"], batch["tokens"])
         pe = batch["patches"].to(COMPUTE_DTYPE) @ params["w_front"]
         x = torch.cat([pe, te], dim=1)
     else:
-        x = params["embed"][batch["tokens"]]
+        x = shardctx.embed(params["embed"], batch["tokens"])
     x = x.to(COMPUTE_DTYPE)
     x = shardctx.constrain(x, shardctx.DP, None, None)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -396,7 +415,7 @@ def forward(params, cfg: ModelConfig, batch: dict, *, want_cache: bool = False,
 
 def logits_fn(params, cfg: ModelConfig, hidden) -> torch.Tensor:
     """LM head with vocab padding masked out. hidden: (..., D) -> (..., Vp)."""
-    logits = (hidden @ params["lm_head"]).float()
+    logits = (hidden @ shardctx.gather(params["lm_head"], shardctx.DP)).float()
     spec = (shardctx.DP,) + (None,) * (logits.ndim - 2) + ("model",)
     logits = shardctx.constrain(logits, *spec)
     if cfg.vocab_padded != cfg.vocab:
@@ -472,11 +491,10 @@ def _layer_decode(p, cfg: ModelConfig, kind: str, x, cache, pos: int, positions)
         x = x + out
         new_cache = {"ckv": ckv, "krope": krope}
     else:
-        ap = p["attn"]
-        b = x.shape[0]
-        q = (h_in @ ap["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
-        k = (h_in @ ap["wk"]).reshape(b, 1, cfg.n_kv, cfg.hd)
-        v = (h_in @ ap["wv"]).reshape(b, 1, cfg.n_kv, cfg.hd)
+        ap = _attn_weights(p["attn"])
+        q = _heads(h_in @ ap["wq"], cfg, cfg.n_heads)
+        k = _heads(h_in @ ap["wk"], cfg, cfg.n_kv)
+        v = _heads(h_in @ ap["wv"], cfg, cfg.n_kv)
         if not cfg.encoder_only:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
@@ -484,14 +502,19 @@ def _layer_decode(p, cfg: ModelConfig, kind: str, x, cache, pos: int, positions)
         if kind == "local":
             w = cfg.window
             slot = (pos - 1) % w
+        else:
+            slot = pos - 1
+        if shardctx.split(kc, 1):  # slots split over ranks: the owner writes
+            shardctx.write_slot(kc, 1, slot, k)
+            shardctx.write_slot(vc, 1, slot, v)
+        else:
             kc[:, slot] = k[:, 0]
             vc[:, slot] = v[:, 0]
+        if kind == "local":
             o = decode_sliding_attention(q, kc, vc, pos, w)
         else:
-            kc[:, pos - 1] = k[:, 0]
-            vc[:, pos - 1] = v[:, 0]
             o = decode_attention(q, kc, vc, pos)
-        x = x + o @ ap["wo"]
+        x = x + shardctx.constrain(o @ ap["wo"], shardctx.DP, None, None)
         new_cache = {"k": kc, "v": vc}
     m_in = rms_norm(x, p["ln2"], eps)
     mo, _ = _mlp_fwd(p["mlp"], cfg, m_in)
@@ -510,7 +533,7 @@ def decode_step(params, cfg: ModelConfig, cache: dict, token: torch.Tensor):
     """Decode one token. token: (B, 1) int. Returns (logits (B, Vp), cache);
     the cache is updated in place and returned."""
     pos = cache["pos"] + 1  # number of tokens including this one
-    x = params["embed"][token].to(COMPUTE_DTYPE)  # (B, 1, D)
+    x = shardctx.embed(params["embed"], token).to(COMPUTE_DTYPE)  # (B, 1, D)
     positions = torch.full((1,), pos - 1, dtype=torch.long, device=x.device)
     kinds = cfg.layer_kinds
     for i, p in enumerate(params["prefix"]):
