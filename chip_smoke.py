@@ -80,7 +80,8 @@ Phases, each reported on lines of its own:
             whole 1,024,000-series set, and topk_ed at the mesh phase's most
             frequent shape (logged); and the launch floor, the device time
             of a one-element elementwise kernel timed the same way (logged,
-            and in every kernel's entry).
+            and in every kernel's entry). paa's timing cases are held to
+            the plain version bit for bit.
 12. gateway: run after the serve phases (once the repeating events' index
             is freed) and before the timing phase. ``serve.py --gateway
             --autotune`` (``serve_gateway``, as the command line runs it) at
@@ -288,7 +289,10 @@ Phases, each reported on lines of its own:
 The profiler sometimes returns a trace with no device record of a call that
 ran on the card (F5): every traced check (phases 6, 14 and 16) then traces a
 repeat of the call, up to two times, before it fails, and logs how many it
-needed.
+needed. Every traced session in which a wrapper launched is counted against
+the device records the trace kept of its kernels (read raw, beside the
+trace's runtime launch records); a short one is logged, and the count of
+short sessions closes the run.
 
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -498,6 +502,9 @@ SANITIZED_GATEWAY_BATCHES = 12
 SANITIZED_GATEWAY_WINDOW = 6
 SANITIZED_REQUESTS = 96
 RETRACES = 2  # repeats traced when a trace came back with no device record
+# F5: profiling sessions with wrapper launches, and those that kept fewer
+# device records of a wrapper's kernels than it launched (trace_census)
+F5_SESSIONS = collections.Counter()
 HOOK_SERIES_LEN = 256  # series_view's length for the Coconut hook
 T_START = time.perf_counter()
 
@@ -859,23 +866,68 @@ def device_times(prof) -> collections.Counter:
     return out
 
 
+def trace_start(torch, cuda_only=False):
+    """Start a profiling session of the card (CPU and CUDA activity, or
+    CUDA alone), the card synchronized first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] if cuda_only else [ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    prof = profile(activities=acts)
+    prof.__enter__()
+    return prof
+
+
+def trace_stop(torch, prof, launches=None, what=""):
+    """End a session started by ``trace_start``, the card synchronized
+    first. With ``launches`` (the wrappers' launches in the session), count
+    the session in F5_SESSIONS and log it if it kept fewer device records
+    of a wrapper's kernels than the wrapper launched (F5)."""
+    torch.cuda.synchronize()
+    prof.__exit__(None, None, None)
+    if launches and any(launches.values()):
+        trace_census(prof, launches, what)
+
+
+def trace_census(prof, launches, what):
+    """F5: each wrapper's launches beside its kernels' device records in the
+    trace, read raw, with the trace's runtime launch records and device
+    records in all; logged where a record is missing."""
+    kept = collections.Counter()
+    runtime = device = 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if str(e.device_type()).endswith("CUDA"):
+            device += 1
+            for k, names in DEVICE_KERNELS.items():
+                kept[k] += sum(n in name for n in names)
+        elif "LaunchKernel" in name:
+            runtime += 1
+    want = {k: n * len(DEVICE_KERNELS[k]) for k, n in launches.items() if n}
+    F5_SESSIONS["traced"] += 1
+    if any(kept[k] < n for k, n in want.items()):
+        F5_SESSIONS["short"] += 1
+        log(f"F5: the trace of {what} kept {({k: kept[k] for k in want})} device records "
+            f"of the wrappers' {want}; it holds {runtime} runtime launch records and "
+            f"{device} device records in all")
+
+
 def kernel_device_ms(torch, fn, reps, names):
     """Device time per launch of the kernels alone (``names``, e.g. min_ed's
     scan and unpack, with its split between them) from the profiler's CUPTI
     trace, averaged over the launches the trace kept. A trace that kept
-    none of some kernel's launches (it drops launches of short sessions) is
-    taken again with twice the launches, up to three traces; (None, {}) if
-    none kept some of each."""
-    from torch.profiler import ProfilerActivity, profile
-
+    none of some kernel's launches (F5: the profiler drops device records)
+    is taken again with twice the launches, up to three traces; (None, {})
+    if none kept some of each."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):
         n = reps << attempt
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
+        prof = trace_start(torch)
+        for _ in range(n):
+            fn()
+        trace_stop(torch, prof)
         split, kept = {}, {}
         for k in names:
             evs = [e for e in prof.key_averages() if k in e.key
@@ -1013,8 +1065,6 @@ def probe_tier(torch, ops, engine, method, shapes, mesh=False):
     screen (``execute._screen_topk_exact``) are counted."""
     import importlib
 
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.streaming import StreamingIndex
 
     # the module (``repro_torch.core`` re-exports its function ``execute``)
@@ -1049,8 +1099,7 @@ def probe_tier(torch, ops, engine, method, shapes, mesh=False):
             rec["repeat"] = lambda: real(self, *args, **kwargs)
             for n in kernels:
                 setattr(ops, n, recorder(n))
-            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            prof.__enter__()
+            prof = trace_start(torch)
             t0 = time.perf_counter()
         ops.reset_launches()  # counts from 0 for this call of the main path
         try:
@@ -1062,7 +1111,7 @@ def probe_tier(torch, ops, engine, method, shapes, mesh=False):
             if traced:
                 torch.cuda.synchronize()
                 rec["traced_s"] += time.perf_counter() - t0
-                prof.__exit__(None, None, None)
+                trace_stop(torch, prof, launches, f"served call {i} ({method})")
                 for n, fn in kernels.items():
                     setattr(ops, n, fn)
                 rec["busy"].update(device_times(prof))
@@ -1591,7 +1640,6 @@ def probe_gateway(ops, traced=False):
     last ticket resolved (device busy share). Every pinned snapshot is kept
     by epoch, and every ticket in submission order beside the time it was
     submitted."""
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.gateway import Gateway
     from repro_torch.core.streaming import StreamingIndex
@@ -1634,9 +1682,9 @@ def probe_gateway(ops, traced=False):
         ops.reset_launches()  # counts from 0 for the measured requests
         rec["measuring"] = True
         if traced:
-            rec["prof"] = profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA])
-            rec["prof"].__enter__()
+            import torch
+
+            rec["prof"] = trace_start(torch)
             rec["t_traced"] = time.perf_counter()
 
     def stop_trace():
@@ -1646,7 +1694,7 @@ def probe_gateway(ops, traced=False):
 
             torch.cuda.synchronize()
             rec["traced_s"] = time.perf_counter() - rec["t_traced"]
-            prof.__exit__(None, None, None)
+            trace_stop(torch, prof, dict(ops.LAUNCHES), "the gateway's traced run")
             rec["busy"] = device_times(prof)
 
     def close(self, *args, **kwargs):
@@ -1910,12 +1958,10 @@ def timed_call(torch, ops, shapes, fn, trace=None):
     ``trace`` (a dict), the call runs under the profiler and adds its
     device time by name ("busy"), its wall seconds, its launches and one
     call to it."""
-    from torch.profiler import ProfilerActivity, profile
 
     prof = None
     if trace is not None:
-        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        prof.__enter__()
+        prof = trace_start(torch)
     ops.reset_launches()
     t0 = time.perf_counter()
     with record_shapes(ops, shapes):
@@ -1924,7 +1970,7 @@ def timed_call(torch, ops, shapes, fn, trace=None):
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     if prof is not None:
-        prof.__exit__(None, None, None)
+        trace_stop(torch, prof, launches, "a timed call")
         trace.setdefault("busy", collections.Counter()).update(device_times(prof))
         trace.setdefault("launches", collections.Counter()).update(launches)
         trace["seconds"] = trace.get("seconds", 0.0) + wall
@@ -1939,15 +1985,15 @@ def trace_device(torch, ops, fn):
     The profiler's raw records are read as they come: a training step runs
     ~10^5 device ops, and building the profiler's Python events for them
     (``key_averages``) takes a minute."""
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
     before = dict(ops.LAUNCHES)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof = trace_start(torch, cuda_only=True)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trace_stop(torch, prof, {k: v - before[k] for k, v in ops.LAUNCHES.items()},
+               "a device-only trace")
     busy = collections.Counter()
     n_ops = 0
     for e in prof.profiler.kineto_results.events():
@@ -3609,6 +3655,9 @@ def case_error(torch, case):
     got, want = case.kernel(), case.plain()
     torch.cuda.synchronize()
     if case.name == "paa":
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"paa: the timing case {tuple(case.x.shape)} differs from the plain "
+                 "version's bits")
         return float((got - want).abs().max())
     return float(max((got[0] - want[0]).abs().max(), (got[1] - want[1]).abs().max()))
 
@@ -3742,6 +3791,9 @@ def main(argv=None) -> int:
         e["launches"] = launches[e["name"]]
         e["max_abs_err"] = worst[e["name"]]
         e["launch_floor_ms"] = floor_ms
+    summary["f5_traces"] = dict(F5_SESSIONS)
+    log(f"F5: {F5_SESSIONS['short']} of {F5_SESSIONS['traced']} traced sessions with "
+        "wrapper launches kept fewer device records than the wrappers launched")
     log(f"serve summary: {json.dumps(summary)}")
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 was switched on during the run")

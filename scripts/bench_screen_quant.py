@@ -9,7 +9,7 @@ rows of the seismic table, w = 16, c = 8); optionally of another source
 tree of the port, so that two builds compare on one card.
 
     python3 scripts/bench_screen_quant.py [--tree DIR] [--label NAME]
-        [--others] [--save FILE] [--compare FILE]
+        [--others] [--only NAME,...] [--save FILE] [--compare FILE]
 
 ``--tree`` is a checkout (or ``git archive``) of the repository whose
 ``src/repro_torch`` is measured; its kernels are built into its own
@@ -21,8 +21,11 @@ within the engine's certificate bound (``chip_smoke.Case.check``), or bit
 for bit (``paa``, ``sax_pack``).
 Kernel times are the profiler's device time per launch of the kernels named
 in ``KERNELS`` (and of the memsets, logged apart); ``library`` is the
-PyTorch yardstick of ``chip_smoke.py``. Prints one line per case and, last,
-a JSON object of all of them.
+PyTorch yardstick of ``chip_smoke.py``. ``--only`` keeps the cases whose
+name contains one of the given words (e.g. ``--others --only paa``). The
+launch floor, a one-element elementwise kernel's device time in the same
+timing, is measured last. Prints one line per case and, last, a JSON object
+of all of them.
 """
 from __future__ import annotations
 
@@ -76,6 +79,8 @@ def main() -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--others", action="store_true",
                     help="also the topk_ed, min_ed, paa and sax_pack kernels")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated words: keep the cases whose name holds one")
     ap.add_argument("--save", default=None)
     ap.add_argument("--compare", default=None)
     ap.add_argument("--reps", type=int, default=50)
@@ -128,6 +133,8 @@ def main() -> int:
                   ("paa 1024000 rows", "paa", SUMMARY_ROWS, None),
                   ("sax_pack 16 rows", "sax_pack", 16, None),
                   ("sax_pack 1024000 rows", "sax_pack", SUMMARY_ROWS, None)]
+    if args.only:
+        cases = [c for c in cases if any(w in c[0] for w in args.only.split(","))]
     summary_cfg = SummarizationConfig(series_len=D, n_segments=16, card_bits=8)
     stored = {}
     saved, results = {}, []
@@ -179,10 +186,15 @@ def main() -> int:
               f"{call_ms:.4f}, library {library_ms:.4f}, bound {bound_ms:.4f} "
               f"({bound_by}); {check}; bitwise = compare: {same}", flush=True)
         del case
+    one = torch.zeros(1, device=dev)
+    floor_ms, _ = cs.kernel_device_ms(torch, lambda: one.add_(1.0), args.reps,
+                                      ("elementwise_kernel",))
+    print(f"[{args.label}] launch floor (a one-element elementwise kernel): "
+          f"{floor_ms} ms", flush=True)
     if args.save:
         Path(args.save).parent.mkdir(parents=True, exist_ok=True)
         torch.save(saved, args.save)
-    print(json.dumps({"device": smi, "results": results}))
+    print(json.dumps({"device": smi, "launch_floor_ms": floor_ms, "results": results}))
     return 0 if all(not math.isnan(r["kernel_ms"]) for r in results) else 1
 
 

@@ -62,38 +62,66 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _compile_and_link(so: Path) -> str:
-    """Compile every source at once, link the objects into ``so``; returns
-    what nvcc and ptxas said."""
+def compile_objects(stem: str) -> tuple[list, str]:
+    """Compile every source at once into objects in BUILD_DIR named after
+    ``stem``; returns the objects and what nvcc and ptxas said. The caller
+    removes the objects."""
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
-    objs = [so.with_name(f"{src.stem}-{so.stem}.{tag}.o") for src in SOURCES]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs = [BUILD_DIR / f"{src.stem}-{stem}.{tag}.o" for src in SOURCES]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
              for src, obj in zip(SOURCES, objs)]
-    logs = [proc.communicate()[0] for proc in procs]
-    log = "".join(logs)
-    try:
-        for src, proc in zip(SOURCES, procs):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name} "
-                                   f"({proc.returncode}):\n{log}")
-        tmp = so.with_suffix(f".{tag}")
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-                              capture_output=True, text=True)
-        log += link.stdout + link.stderr
-        if link.returncode != 0:
-            raise RuntimeError(f"linking failed ({link.returncode}):\n{log}")
-        os.replace(tmp, so)
-    finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-    return log
+    log = "".join(proc.communicate()[0] for proc in procs)
+    for src, proc in zip(SOURCES, procs):
+        if proc.returncode != 0:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+    return objs, log
+
+
+def link(objs, so: Path, cudart: str = "static") -> str:
+    """Link ``objs`` into the shared library ``so`` against the CUDA runtime
+    as ``cudart`` says: "static" (nvcc's default, a copy of the runtime in
+    the library) or "shared" (the toolkit's ``libcudart.so``, which a
+    process that loaded torch's shares); returns what the linker said."""
+    nvcc = _nvcc()
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    rpath = Path(nvcc).resolve().parents[1] / "lib64"
+    cmd = [nvcc, "-shared", "-cudart", cudart, "-o", str(tmp), *map(str, objs)]
+    if cudart == "shared":
+        cmd[1:1] = ["-Xlinker", f"-rpath={rpath}"]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"linking failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)
+    return proc.stdout + proc.stderr
+
+
+def load(so: Path) -> ctypes.CDLL:
+    """Load a built library, set its functions' signatures and read its
+    layout; it becomes the library the wrappers launch from."""
+    global _LIB
+    lib = ctypes.CDLL(str(so))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    out = (ctypes.c_int * 4)()
+    lib.coconut_screen_layout(out)
+    LAYOUT["screen"] = dict(pass_slate=out[0], query_block=out[1], tile=out[2])
+    lib.coconut_summarize_layout(out)
+    LAYOUT.update(max_key_words=out[0], max_breakpoints=out[1])
+    _LIB = lib
+    return lib
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, compiled on first use."""
-    global _LIB, BUILD_LOG
+    global BUILD_LOG
     if _LIB is not None:
         return _LIB
     with _LOCK:
@@ -105,20 +133,13 @@ def library() -> ctypes.CDLL:
         digest.update(" ".join(NVCC_FLAGS).encode())
         so = BUILD_DIR / f"libcoconut_kernels-{digest.hexdigest()[:16]}.so"
         if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            BUILD_LOG = _compile_and_link(so)
-        lib = ctypes.CDLL(str(so))
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        out = (ctypes.c_int * 4)()
-        lib.coconut_screen_layout(out)
-        LAYOUT["screen"] = dict(pass_slate=out[0], query_block=out[1], tile=out[2])
-        lib.coconut_summarize_layout(out)
-        LAYOUT.update(max_key_words=out[0], max_breakpoints=out[1])
-        _LIB = lib
-        return lib
+            objs, BUILD_LOG = compile_objects(so.stem)
+            try:
+                BUILD_LOG += link(objs, so)
+            finally:
+                for obj in objs:
+                    obj.unlink(missing_ok=True)
+        return load(so)
 
 
 def layout() -> dict:

@@ -21,14 +21,25 @@
 // 4 w + 8 n_words. At the 1,024,000 x 256 seismic set that is ~1 GB for PAA,
 // ~0.3 ms at 3.35 TB/s, and 164 MB for SAX-pack at w = 16, c = 8, ~0.05 ms.
 //
-// Design. The TPU kernel reduces a (block_b, n) VMEM tile with a reshape-mean.
-// Here a block stages R whole rows in shared memory with coalesced loads
-// (neighbouring threads on neighbouring addresses), each segment padded by one
-// float so the threads that then sum one segment each hit distinct banks; one
-// thread per (row, segment) sums its segment. A series whose padded row does
-// not fit the block's shared memory (n over about 12,000 values) is summed
-// from device memory instead, one thread per (row, segment) in the same
-// order, so any length gives the same bits.
+// Design of PAA. The TPU kernel reduces a (block_b, n) VMEM tile with a
+// reshape-mean. Here nothing is staged: one thread owns one (row, segment)
+// pair e = row w + segment at a time, and since a row's segments lie end to
+// end, pair e's values are x[e L .. e L + L - 1], one contiguous run. The
+// thread issues PAA_VEC_LOADS 16-byte loads through the read-only path (or
+// PAA_SCALAR_LOADS 4-byte ones where L % 4 != 0 or x is not 16-byte aligned)
+// before its first add, then adds them in order, so a segment of L = 16 is
+// one round trip to device memory. The sum starts from -0.0, the identity of
+// IEEE addition, so the first add gives x[e L] exactly: the order and the
+// bits are paa_ref's. Longer segments loop over such chunks. The loads of a
+// warp are not coalesced one instruction at a time (lane i reads 16 bytes
+// of the run 4 L bytes from lane i - 1), but its PAA_VEC_LOADS instructions
+// read whole sectors between them, so every byte fetched from device memory
+// is used and the reuse is served by L1. Blocks of PAA_THREADS pairs, at
+// most PAA_BLOCKS_PER_SM of them an SM, walk the pairs with a grid stride:
+// 16 rows of 16 segments spread over 4 SMs, and 1,024,000 rows keep every
+// SM at 1,024 threads, each with up to 64 bytes in flight (the card needs
+// ~25 KB an SM in flight to run at its memory rate). What bounds it is
+// device memory: the stores (4 bytes a pair) and loads are each touched once.
 //
 // SAX-pack is one thread per (row, segment), so the loads of p and the stores
 // of symbols are coalesced, and persistent blocks (SAX_BLOCKS_PER_SM an SM)
@@ -53,9 +64,10 @@
 
 namespace {
 
-constexpr int PAA_THREADS = 256;
-constexpr int PAA_MAX_ROWS = 32;            // rows a block stages at most
-constexpr int PAA_SMEM_FLOATS = 48 * 1024 / 4;  // staged floats a block holds at most
+constexpr int PAA_THREADS = 64;             // (row, segment) pairs a block at a time
+constexpr int PAA_BLOCKS_PER_SM = 16;       // resident blocks an SM: the grid's cap
+constexpr int PAA_VEC_LOADS = 4;            // 16-byte loads in flight a thread
+constexpr int PAA_SCALAR_LOADS = 16;        // 4-byte loads in flight a thread
 constexpr int SAX_THREADS = 256;            // (row, segment) elements a sub-tile
 constexpr int SAX_SUBTILES = 4;             // sub-tiles a tile: loads in flight a thread
 constexpr int SAX_BLOCKS_PER_SM = 4;        // resident blocks an SM at 64 registers
@@ -63,37 +75,49 @@ constexpr int MAX_BREAKPOINTS = 255;        // 2^8 - 1: card_bits <= 8
 constexpr int MAX_WORDS = 8;                // w * card_bits <= 256 key bits
 static_assert(SAX_THREADS > MAX_BREAKPOINTS, "one breakpoint a thread is staged");
 
-// STAGED: rows_per_block rows a block, staged in shared memory; else one
-// thread per (row, segment) over the whole batch, reading device memory.
-template <bool STAGED>
-__global__ void __launch_bounds__(PAA_THREADS)
-paa_kernel(const float* __restrict__ x, int b, int n, int w, int rows_per_block,
+// One thread a (row, segment) pair at a time, pairs e = blockIdx.x
+// PAA_THREADS + threadIdx.x, + gridDim.x PAA_THREADS, ...; pair e's values
+// are x[e L .. e L + L - 1]. vec: L % 4 == 0 and x 16-byte aligned, so every
+// pair's run starts on a 16-byte boundary and is read as float4s.
+__global__ void __launch_bounds__(PAA_THREADS, PAA_BLOCKS_PER_SM)
+paa_kernel(const float* __restrict__ x, long long pairs, int L, bool vec,
            float* __restrict__ out) {
-  const int L = n / w;
-  if constexpr (!STAGED) {
-    const size_t e = (size_t)blockIdx.x * PAA_THREADS + threadIdx.x;
-    if (e >= (size_t)b * w) return;
-    const float* seg = x + e * L;  // segment e % w of row e / w
-    float acc = seg[0];
-    for (int j = 1; j < L; ++j) acc = __fadd_rn(acc, seg[j]);
-    out[e] = __fdiv_rn(acc, static_cast<float>(L));
-    return;
-  }
-  extern __shared__ float tile[];  // rows_per_block * w * (L + 1)
-  const int row0 = blockIdx.x * rows_per_block;
-  const int nrows = min(rows_per_block, b - row0);
-  const float* src = x + (size_t)row0 * n;
-  for (int e = threadIdx.x; e < nrows * n; e += PAA_THREADS) {
-    const int r = e / n, c = e - r * n;
-    const int s = c / L, j = c - s * L;
-    tile[(r * w + s) * (L + 1) + j] = src[e];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < nrows * w; e += PAA_THREADS) {
-    const float* seg = tile + e * (L + 1);
-    float acc = seg[0];
-    for (int j = 1; j < L; ++j) acc = __fadd_rn(acc, seg[j]);
-    out[(size_t)row0 * w + e] = __fdiv_rn(acc, static_cast<float>(L));
+  const float len = static_cast<float>(L);
+  const long long stride = (long long)gridDim.x * PAA_THREADS;
+  for (long long e = (long long)blockIdx.x * PAA_THREADS + threadIdx.x; e < pairs;
+       e += stride) {
+    float acc = -0.0f;  // -0.0 + v == v for every v: the first add is exact
+    if (vec) {
+      const float4* seg = reinterpret_cast<const float4*>(x + e * L);
+      const int n4 = L >> 2;
+      for (int c = 0; c < n4; c += PAA_VEC_LOADS) {
+        float4 v[PAA_VEC_LOADS];
+#pragma unroll
+        for (int k = 0; k < PAA_VEC_LOADS; ++k)
+          if (c + k < n4) v[k] = __ldg(seg + c + k);
+#pragma unroll
+        for (int k = 0; k < PAA_VEC_LOADS; ++k) {
+          if (c + k < n4) {
+            acc = __fadd_rn(acc, v[k].x);
+            acc = __fadd_rn(acc, v[k].y);
+            acc = __fadd_rn(acc, v[k].z);
+            acc = __fadd_rn(acc, v[k].w);
+          }
+        }
+      }
+    } else {
+      const float* seg = x + e * L;
+      for (int c = 0; c < L; c += PAA_SCALAR_LOADS) {
+        float v[PAA_SCALAR_LOADS];
+#pragma unroll
+        for (int k = 0; k < PAA_SCALAR_LOADS; ++k)
+          if (c + k < L) v[k] = __ldg(seg + c + k);
+#pragma unroll
+        for (int k = 0; k < PAA_SCALAR_LOADS; ++k)
+          if (c + k < L) acc = __fadd_rn(acc, v[k]);
+      }
+    }
+    out[e] = __fdiv_rn(acc, len);
   }
 }
 
@@ -265,20 +289,19 @@ void coconut_summarize_layout(int* out) {
 
 // x (b, n) f32 -> out (b, w) f32. Returns the CUDA error code of the launch.
 int coconut_paa(const void* x, int b, int n, int w, void* out, void* stream) {
-  if (b <= 0 || w <= 0 || n % w != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* xf = static_cast<const float*>(x);
-  auto* of = static_cast<float*>(out);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int row_floats = w * (n / w + 1);
-  if (row_floats > PAA_SMEM_FLOATS) {  // too long to stage: from device memory
-    const size_t grid = ((size_t)b * w + PAA_THREADS - 1) / PAA_THREADS;
-    paa_kernel<false><<<static_cast<unsigned>(grid), PAA_THREADS, 0, st>>>(xf, b, n, w, 0, of);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int rows = min(PAA_MAX_ROWS, PAA_SMEM_FLOATS / row_floats);
-  const int grid = (b + rows - 1) / rows;
-  paa_kernel<true><<<grid, PAA_THREADS, rows * row_floats * sizeof(float), st>>>(
-      xf, b, n, w, rows, of);
+  if (b <= 0 || w <= 0 || n <= 0 || n % w != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int L = n / w;
+  const long long pairs = (long long)b * w;
+  const bool vec = L % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long blocks = (pairs + PAA_THREADS - 1) / PAA_THREADS;
+  const long long cap = (long long)(sms > 0 ? sms : 1) * PAA_BLOCKS_PER_SM;
+  const int grid = static_cast<int>(blocks < cap ? blocks : cap);
+  paa_kernel<<<grid, PAA_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), pairs, L, vec, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -403,12 +403,15 @@ def test_cuda_topk_ed_one_launch_per_pass(cuda, k):
                                      (33, 64, 8, 4), (5, 128, 16, 2),
                                      (40, 16384, 16, 8), (7, 65536, 16, 8),
                                      (513, 256, 32, 8), (300, 256, 64, 4),
-                                     (16, 256, 16, 8)])
+                                     (16, 256, 16, 8), (7, 90, 6, 8), (33, 250, 10, 4),
+                                     (5, 40, 2, 8), (1_024_000, 256, 16, 8)])
 def test_cuda_summarize_matches_plain(cuda, b, n, w, c):
     """PAA sums in the plain version's order, so values, symbols and keys
-    are bitwise the plain version's; keys equal the host's interleave.
-    Series too long to stage in a block's shared memory (16,384 and 65,536
-    values) are summed from device memory, in the same order."""
+    are bitwise the plain version's; keys equal the host's interleave. Any
+    length: segments of 1,024 and 4,096 values (16,384 and 65,536 a row)
+    loop over chunks of loads; 15- and 25-value segments (n % 4 != 0) take
+    the scalar loads; 1,024,000 rows is the seismic set of the serve
+    phases."""
     from repro_torch.core import sortable, summarization
 
     cfg = summarization.SummarizationConfig(series_len=n, n_segments=w, card_bits=c)
@@ -433,6 +436,31 @@ def test_cuda_summarize_matches_plain(cuda, b, n, w, c):
     assert ops.sax_and_keys(torch.zeros((0, w), device=cuda), cfg)[1].shape == (
         0, cfg.key_words)
     assert ops.LAUNCHES["paa"] == ops.LAUNCHES["sax_pack"] == 0
+
+
+@pytest.mark.parametrize("b,n,w", [(16, 256, 16), (33, 96, 12)])
+def test_cuda_paa_off_a_16_byte_boundary(cuda, b, n, w):
+    """Rows that start 4 bytes past a 16-byte boundary (a view one float
+    into its buffer) are read with 4-byte loads: the same bits as the plain
+    version, one launch, and -0.0 segments keep their sign."""
+    from repro_torch.core import summarization
+
+    cfg = summarization.SummarizationConfig(series_len=n, n_segments=w, card_bits=8)
+    rng = np.random.default_rng(3)
+    xh = rng.standard_normal((b, n)).astype(np.float32)
+    xh[0, : n // w] = -0.0
+    buf = torch.empty(b * n + 1, device=cuda)
+    x = buf[1:].view(b, n)
+    x.copy_(torch.from_numpy(xh).to(cuda))
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    ops.reset_launches()
+    p = ops.paa(x, cfg)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["paa"] == 1
+    pp = ref.paa_ref(x, w)
+    np.testing.assert_array_equal(p.cpu().numpy().view(np.uint32),
+                                  pp.cpu().numpy().view(np.uint32))
+    assert np.signbit(p[0, 0].item())
 
 
 @pytest.mark.parametrize("b", [1, 16, 33, 1_024_000])

@@ -1197,103 +1197,124 @@ def test_sax_pack_plan_fits_every_width():
 
 
 # ---------------------------------------------------------------------------
-# paa's layout (csrc/summarize.cu paa_kernel): rows staged in shared memory,
-# each segment padded by one float, one thread per (row, segment) summing
-# left to right; series too long to stage summed from device memory
+# paa's layout (csrc/summarize.cu paa_kernel): one thread a (row, segment)
+# pair at a time over a grid-strided walk, the pair's contiguous run of L
+# values read as float4s (or floats) a chunk at a time before its adds, the
+# sum started from -0.0 and taken left to right
 # ---------------------------------------------------------------------------
-def _paa_plan(n, w):
-    """``coconut_paa``'s plan: (staged, rows a block, floats a staged row)."""
+H100_SMS = 132
+
+
+def _paa_launch(b, n, w, sms=H100_SMS, base=0):
+    """``coconut_paa``'s plan: (grid, vec). ``base`` is x's offset in
+    floats from a 16-byte boundary."""
     k = _summarize_constants()
-    row_floats = w * (n // w + 1)
-    if row_floats > k["PAA_SMEM_FLOATS"]:
-        return False, 0, row_floats
-    return True, min(k["PAA_MAX_ROWS"], k["PAA_SMEM_FLOATS"] // row_floats), row_floats
+    blocks = -(-b * w // k["PAA_THREADS"])
+    grid = min(blocks, max(1, sms) * k["PAA_BLOCKS_PER_SM"])
+    return grid, (n // w) % 4 == 0 and base % 4 == 0
 
 
-def _emulate_paa(x, w):
-    """paa_kernel block by block on the CPU: the staged tile's padded layout
-    written element by element as the block's threads write it, then each
-    (row, segment) thread's left-to-right f32 sum and IEEE division; or
-    the unstaged kernel's one thread per (row, segment) over the batch."""
+def _emulate_paa(x, w, sms=H100_SMS, base=0):
+    """paa_kernel on the CPU, every thread of the grid side by side: the
+    grid-stride walk over (row, segment) pairs, each pair's run loaded a
+    chunk at a time (PAA_VEC_LOADS float4s, or PAA_SCALAR_LOADS floats) and
+    added in order to -0.0 in f32, then divided by L. x lies ``base`` floats
+    past a 16-byte boundary. Returns (PAA, writes a pair, reads a value,
+    vector loads off a 16-byte boundary)."""
     b, n = x.shape
-    L = n // w
-    threads = _summarize_constants()["PAA_THREADS"]
-    staged, rows, row_floats = _paa_plan(n, w)
-    out = np.full(b * w, np.nan, np.float32)
-    written = np.zeros(b * w, np.int64)
-
-    def seg_sum(vals):  # (E, L) -> (E,), the kernel's order and rounding
-        acc = vals[:, 0].copy()
-        for j in range(1, L):
-            acc = (acc + vals[:, j]).astype(np.float32)
-        return (acc / np.float32(L)).astype(np.float32)
-
-    if not staged:
-        grid = -(-b * w // threads)
-        for blk in range(grid):
-            e = blk * threads + np.arange(threads)
-            e = e[e < b * w]
-            out[e] = seg_sum(x.reshape(-1)[e[:, None] * L + np.arange(L)])
-            written[e] += 1
-        return out.reshape(b, w), written
-    for blk in range(-(-b // rows)):
-        row0 = blk * rows
-        nrows = min(rows, b - row0)
-        src = x[row0:row0 + nrows].reshape(-1)
-        tile = np.full(rows * row_floats, np.nan, np.float32)
-        for t in range(threads):  # each thread's strided share of the loads
-            e = np.arange(t, nrows * n, threads)
-            r, c = e // n, e % n
-            s, j = c // L, c % L
-            tile[(r * w + s) * (L + 1) + j] = src[e]
-        e = np.arange(nrows * w)  # the (row, segment) threads
-        out[row0 * w + e] = seg_sum(tile[e[:, None] * (L + 1) + np.arange(L)])
-        written[row0 * w + e] += 1
-    return out.reshape(b, w), written
+    L, pairs = n // w, b * w
+    k = _summarize_constants()
+    threads = k["PAA_THREADS"]
+    grid, vec = _paa_launch(b, n, w, sms, base)
+    mem = np.concatenate([np.zeros(base, np.float32), x.reshape(-1)])
+    out = np.full(pairs, np.nan, np.float32)
+    written = np.zeros(pairs, np.int64)
+    reads = np.zeros(mem.size, np.int64)
+    misaligned = 0
+    width, chunk = (4, k["PAA_VEC_LOADS"]) if vec else (1, k["PAA_SCALAR_LOADS"])
+    per = L // width  # loads a run
+    tid = np.arange(grid * threads)
+    for start in range(0, pairs, grid * threads):  # the grid-stride loop
+        e = start + tid
+        e = e[e < pairs]
+        acc = np.full(e.size, -0.0, np.float32)
+        for c in range(0, per, chunk):
+            loads = []
+            for j in range(c, min(c + chunk, per)):  # all of the chunk's loads first
+                at = base + e * L + width * j
+                misaligned += int((at % width != 0).sum())
+                vals = mem[at[:, None] + np.arange(width)]
+                np.add.at(reads, (at[:, None] + np.arange(width)).ravel(), 1)
+                loads.append(vals)
+            for vals in loads:  # then the adds, in order
+                for i in range(width):
+                    acc = (acc + vals[:, i]).astype(np.float32)
+        out[e] = (acc / np.float32(L)).astype(np.float32)
+        written[e] += 1
+    return out.reshape(b, w), written, reads[base:], misaligned
 
 
 @pytest.mark.parametrize("b,n,w", [(1, 256, 16), (67, 256, 16), (300, 64, 8),
-                                   (45, 120, 8), (33, 96, 12), (5, 16384, 16)])
+                                   (45, 120, 8), (33, 96, 12), (5, 16384, 16),
+                                   (7, 90, 6), (3, 256, 16), (6, 100, 4), (5, 40, 2)])
 def test_paa_emulation_matches_plain_and_pallas(b, n, w, rng):
     """The kernel's layout, emulated on the CPU, gives the plain version's
     PAA bit for bit, and the Pallas kernel's to f32 tolerance: every (row,
-    segment) written once, none of the tile's pad floats read. 67 and 45 rows end in a short
-    block; 15-value segments (n = 120) make the pad stride even; 16,384
-    values a row do not fit a block and take the unstaged kernel."""
+    segment) written once, every value read once. 67 and 3 rows end inside
+    a block; 15-value (n = 120, n = 90 with n % 4 != 0) and 25-value
+    segments take the scalar loads, 15 of them inside one chunk, 25 over
+    a chunk and a tail; 5 float4s (n = 40) end in a short vector chunk;
+    16,384 values a row are segments of 1,024 over 64 chunks. The walk is
+    taken on the H100's 132 SMs and on one, where 300 x 8 pairs take three
+    trips of the grid stride: the same bits."""
     from repro.kernels.paa_kernel import paa_pallas
 
     x = rng.standard_normal((b, n)).astype(np.float32)
-    got, written = _emulate_paa(x, w)
-    assert (written == 1).all() and not np.isnan(got).any()
-    assert _paa_plan(n, w)[0] == (n < 12000)
-    np.testing.assert_array_equal(got.view(np.uint32),
-                                  ref.paa_ref(_t(x), w).numpy().view(np.uint32))
+    plain = ref.paa_ref(_t(x), w).numpy()
+    for sms in (H100_SMS, 1):
+        got, written, reads, misaligned = _emulate_paa(x, w, sms)
+        assert (written == 1).all() and (reads == 1).all() and misaligned == 0
+        np.testing.assert_array_equal(got.view(np.uint32), plain.view(np.uint32))
+    assert _paa_launch(b, n, w)[1] == ((n // w) % 4 == 0)
     # the Pallas kernel's mean sums in its own order (test_paa_matches_reference)
     np.testing.assert_allclose(
         got, np.asarray(paa_pallas(jnp.asarray(x), w, block_b=b, interpret=True)),
         rtol=1e-5, atol=1e-6)
 
 
-def test_paa_plan_fits_shared_memory_and_spreads_banks():
-    """Every staged plan holds at least one row and fits the 48 KB of
-    dynamic shared memory a launch may take without an attribute; the
-    padded layout gives every (row, segment, value) a slot of its own; and
-    where the padded stride L + 1 is odd, the 32 threads of a warp read 32
-    distinct banks at every step of their sums."""
+def test_paa_plan_writes_every_pair_once_and_aligns_vector_loads(rng):
+    """Over a range of batches, lengths and segment counts, at a 16-byte
+    aligned and an unaligned base, on 132 SMs and on 2: every (row,
+    segment) is written once and every value read once; float4 loads are
+    taken exactly where L % 4 == 0 and the base is aligned, and every one
+    starts on a 16-byte boundary; the grid stays within launch limits (at
+    least one block, at most PAA_BLOCKS_PER_SM an SM, blocks of at most
+    1,024 threads), and the query path's 16 x 256 batch spreads over
+    several SMs. A run of -0.0 keeps its sign: the sum starts from -0.0."""
     k = _summarize_constants()
-    assert k["PAA_SMEM_FLOATS"] * 4 == 48 * 1024
-    for w in (1, 4, 8, 12, 16, 32, 64):
-        for L in range(1, 1100, 7):
-            staged, rows, row_floats = _paa_plan(w * L, w)
-            if not staged:
-                assert row_floats > k["PAA_SMEM_FLOATS"]
-                continue
-            assert 1 <= rows <= k["PAA_MAX_ROWS"] and rows * row_floats <= k["PAA_SMEM_FLOATS"]
-            slots = ((np.arange(rows * w)[:, None] * (L + 1)) + np.arange(L)).ravel()
-            assert np.unique(slots).size == slots.size and slots.max() < rows * row_floats
-            if (L + 1) % 2 and rows * w >= 32:
-                for j in (0, L - 1):
-                    assert np.unique((np.arange(32) * (L + 1) + j) % 32).size == 32
+    assert 32 <= k["PAA_THREADS"] <= 1024 and k["PAA_THREADS"] % 32 == 0
+    assert k["PAA_THREADS"] * k["PAA_BLOCKS_PER_SM"] <= 2048  # threads an SM
+    for b in (1, 2, 16, 33, 130):
+        for w in (1, 3, 4, 8, 16):
+            for L in (1, 2, 3, 4, 5, 8, 15, 16, 17, 20, 64, 65):
+                for sms, base in ((H100_SMS, 0), (2, 0), (2, 1), (H100_SMS, 2)):
+                    x = rng.standard_normal((b, w * L)).astype(np.float32)
+                    got, written, reads, misaligned = _emulate_paa(x, w, sms, base)
+                    grid, vec = _paa_launch(b, w * L, w, sms, base)
+                    assert 1 <= grid <= sms * k["PAA_BLOCKS_PER_SM"]
+                    assert grid * k["PAA_THREADS"] >= min(b * w, sms * k["PAA_THREADS"]
+                                                          * k["PAA_BLOCKS_PER_SM"])
+                    assert vec == (L % 4 == 0 and base % 4 == 0) and misaligned == 0
+                    assert (written == 1).all() and (reads == 1).all()
+                    np.testing.assert_array_equal(
+                        got.view(np.uint32), ref.paa_ref(_t(x), w).numpy().view(np.uint32))
+    for b in (10 ** 6, 1_024_000, 2 ** 31 // 16):  # the whole set and beyond
+        assert _paa_launch(b, 256, 16)[0] == H100_SMS * k["PAA_BLOCKS_PER_SM"] < 2 ** 31 - 1
+    assert _paa_launch(16, 256, 16)[0] >= 4
+    zeros = np.full((2, 64), -0.0, np.float32)
+    got = _emulate_paa(zeros, 4)[0]
+    assert np.signbit(got).all() and np.array_equal(
+        got.view(np.uint32), ref.paa_ref(_t(zeros), 4).numpy().view(np.uint32))
 
 
 # ---------------------------------------------------------------------------
