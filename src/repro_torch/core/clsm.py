@@ -32,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import spans
 from .ctree import RawStore, SortedRun, state_to_list
 from .execute import execute
 from .io_model import DiskModel
@@ -96,54 +97,56 @@ class CLSM:
         once the buffer fills. For ingest that must not block the caller on
         compaction, wrap the index in an
         :class:`repro_torch.core.ingest.IngestPipeline` instead."""
-        chunk = BufferChunk(
-            series=np.asarray(series, np.float32),
-            ids=np.asarray(ids, np.int64),
-            ts=np.asarray(ts, np.int64),
-        )
-        self.append_chunk(chunk)
-        while self.registry.current().buffer_n >= self.cfg.buffer_entries:
-            self._flush()
+        with spans.span("clsm.insert"):
+            chunk = BufferChunk(
+                series=np.asarray(series, np.float32),
+                ids=np.asarray(ids, np.int64),
+                ts=np.asarray(ts, np.int64),
+            )
+            self.append_chunk(chunk)
+            while self.registry.current().buffer_n >= self.cfg.buffer_entries:
+                self._flush()
 
     def _flush(self) -> None:
         """One flush: take a buffer's worth of entries, external-sort them
         into a level-0 run, publish it, then run any cascading merges.
         Single-writer: only the ingesting thread (or the one pipeline
         worker) calls this — queries are pure snapshot readers."""
-        n = min(self.cfg.buffer_entries, self.registry.current().buffer_n)
-        if n == 0:
-            return
-        chunk, _ = self.registry.take_for_flush(n)
-        if chunk is None:
-            return
-        st = self.storage
-        if st is not None:
-            st.maybe_crash("flush-taken")
-        run, _ = SortedRun.build(
-            chunk.series,
-            chunk.ids,
-            self.cfg.summarization,
-            block_size=self.cfg.block_size,
-            materialized=self.cfg.materialized,
-            ts=chunk.ts,
-            disk=self.disk,
-            mem_budget_entries=self.cfg.buffer_entries,
-            screen_dtype=self.cfg.screen_dtype,
-            device=self.device,
-        )
-        if st is not None:
-            # persist BEFORE publish: once queries can route to the run its
-            # files exist; the manifest commit below makes them the durable
-            # home of these entries (until then the WAL still covers them)
-            run = st.persist_run(run)
-        # queries planned while the run was sorting saw the chunk as a dense
-        # source; this single swap makes later plans see the run instead
-        snap = self.registry.publish_flush(chunk, run)
-        if st is not None:
-            st.commit_flush(chunk.n, snap)
-        self.n_flushes += 1
-        if self.cfg.merge:
-            self._maybe_merge(0)
+        with spans.span("clsm.flush"):
+            n = min(self.cfg.buffer_entries, self.registry.current().buffer_n)
+            if n == 0:
+                return
+            chunk, _ = self.registry.take_for_flush(n)
+            if chunk is None:
+                return
+            st = self.storage
+            if st is not None:
+                st.maybe_crash("flush-taken")
+            run, _ = SortedRun.build(
+                chunk.series,
+                chunk.ids,
+                self.cfg.summarization,
+                block_size=self.cfg.block_size,
+                materialized=self.cfg.materialized,
+                ts=chunk.ts,
+                disk=self.disk,
+                mem_budget_entries=self.cfg.buffer_entries,
+                screen_dtype=self.cfg.screen_dtype,
+                device=self.device,
+            )
+            if st is not None:
+                # persist BEFORE publish: once queries can route to the run its
+                # files exist; the manifest commit below makes them the durable
+                # home of these entries (until then the WAL still covers them)
+                run = st.persist_run(run)
+            # queries planned while the run was sorting saw the chunk as a dense
+            # source; this single swap makes later plans see the run instead
+            snap = self.registry.publish_flush(chunk, run)
+            if st is not None:
+                st.commit_flush(chunk.n, snap)
+            self.n_flushes += 1
+            if self.cfg.merge:
+                self._maybe_merge(0)
 
     def flush_all(self) -> None:
         while self.registry.current().buffer_n > 0:
@@ -177,33 +180,34 @@ class CLSM:
 
     def _merge_runs(self, runs: list[SortedRun]) -> SortedRun:
         """Sort-merge runs (sequential read of inputs + sequential write)."""
-        scfg = self.cfg.summarization
-        syms = np.concatenate([r.sax for r in runs])
-        ids = np.concatenate([r.ids for r in runs])
-        ts = np.concatenate([r.ts for r in runs]) if runs[0].ts is not None else None
-        series = (
-            np.concatenate([r.series for r in runs]) if runs[0].materialized else None
-        )
-        in_bytes = sum(r.index_bytes() for r in runs)
-        self.disk.read_seq(in_bytes)
-        merged, _ = SortedRun.from_arrays(
-            scfg,
-            syms,
-            ids,
-            block_size=self.cfg.block_size,
-            series=series,
-            ts=ts,
-            disk=None,  # accounted below as one sequential write
-            mem_budget_entries=max(1, self.cfg.buffer_entries),
-            screen_dtype=self.cfg.screen_dtype,
-            device=self.device,
-        )
-        self.disk.write_seq(merged.index_bytes())
-        self.n_merges += 1
-        self.merged_bytes += in_bytes
-        return merged
+        with spans.span("clsm.merge"):
+            scfg = self.cfg.summarization
+            syms = np.concatenate([r.sax for r in runs])
+            ids = np.concatenate([r.ids for r in runs])
+            ts = np.concatenate([r.ts for r in runs]) if runs[0].ts is not None else None
+            series = (
+                np.concatenate([r.series for r in runs]) if runs[0].materialized else None
+            )
+            in_bytes = sum(r.index_bytes() for r in runs)
+            self.disk.read_seq(in_bytes)
+            merged, _ = SortedRun.from_arrays(
+                scfg,
+                syms,
+                ids,
+                block_size=self.cfg.block_size,
+                series=series,
+                ts=ts,
+                disk=None,  # accounted below as one sequential write
+                mem_budget_entries=max(1, self.cfg.buffer_entries),
+                screen_dtype=self.cfg.screen_dtype,
+                device=self.device,
+            )
+            self.disk.write_seq(merged.index_bytes())
+            self.n_merges += 1
+            self.merged_bytes += in_bytes
+            return merged
 
-    # ---------------------------------------------------------------- query
+        # ---------------------------------------------------------------- query
     def _pinned(self, snapshot: Optional[RunSet]):
         """The query-side snapshot context: pin a fresh epoch, or pass an
         explicitly provided snapshot through (the caller pinned it)."""
@@ -220,11 +224,12 @@ class CLSM:
         chunks = snapshot.dense_chunks()
         if not chunks:
             return None
-        series = np.concatenate([c.series for c in chunks])
-        ids = np.concatenate([c.ids for c in chunks])
-        ts = None
-        if all(c.ts is not None for c in chunks):
-            ts = np.concatenate([c.ts for c in chunks])
+        with spans.span("plan.buffer"):
+            series = np.concatenate([c.series for c in chunks])
+            ids = np.concatenate([c.ids for c in chunks])
+            ts = None
+            if all(c.ts is not None for c in chunks):
+                ts = np.concatenate([c.ts for c in chunks])
         return DenseSource(
             ops=SourceOps(ids=ids, ts=ts, fetch=lambda p, s=series: s[p],
                           device=self.device),
@@ -290,6 +295,7 @@ class CLSM:
         )
         return state_to_list(vals[0], gids[0]), stats
 
+    @spans.request
     def knn_batch(self, Q, k=1, *, raw: Optional[RawStore] = None, window=None,
                   backend="device", time_skip=True, shard=None, mesh=None,
                   snapshot=None):

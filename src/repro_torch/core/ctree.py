@@ -35,6 +35,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import spans
 from .execute import (
     BACKENDS,
     empty_topk_state,
@@ -102,11 +103,12 @@ class RawStore:
     def _all(self) -> np.ndarray:
         with self._lock:
             if self._data is None:
-                self._data = (
-                    np.concatenate(self._chunks, axis=0)
-                    if self._chunks
-                    else np.zeros((0, self.series_len), np.float32)
-                )
+                with spans.span("raw.concat", self.n * self.series_len * 4):
+                    self._data = (
+                        np.concatenate(self._chunks, axis=0)
+                        if self._chunks
+                        else np.zeros((0, self.series_len), np.float32)
+                    )
             return self._data
 
     def fetch(self, ids: np.ndarray) -> np.ndarray:
@@ -445,22 +447,24 @@ class SortedRun:
     ) -> BlockSource:
         """Exact-tier candidate generation: per-(query, block) lower bounds
         from the zone maps; the executor's adaptive traversal does the rest."""
-        Q = np.asarray(Q, np.float32)
-        qp = np.asarray(paa(Q, self.cfg))  # (m, w)
-        blb = mindist_region2(
-            qp[:, None, :], self.bmin.astype(np.int64), self.bmax.astype(np.int64),
-            self.cfg,
-        )  # (m, nb)
-        bs = self.block_size
-        blocks = [
-            np.arange(b * bs, min(self.n, (b + 1) * bs))
-            for b in range(self.n_blocks)
-        ]
-        return BlockSource(
-            ops=self._ops(raw, disk, sequential=self.materialized, screen=True),
-            lb=blb,
-            blocks=blocks,
-        )
+        with spans.span("plan.exact"):
+            Q = np.asarray(Q, np.float32)
+            qp = np.asarray(paa(Q, self.cfg))  # (m, w)
+            blb = mindist_region2(
+                qp[:, None, :], self.bmin.astype(np.int64),
+                self.bmax.astype(np.int64), self.cfg,
+            )  # (m, nb)
+            bs = self.block_size
+            blocks = [
+                np.arange(b * bs, min(self.n, (b + 1) * bs))
+                for b in range(self.n_blocks)
+            ]
+            return BlockSource(
+                ops=self._ops(raw, disk, sequential=self.materialized,
+                              screen=True),
+                lb=blb,
+                blocks=blocks,
+            )
 
     def _query_keys_batch(self, Q: np.ndarray, backend: str) -> np.ndarray:
         """Sortable keys for a query batch: (m, n) series -> (m, nw) uint32.
@@ -851,6 +855,7 @@ class CTree:
         )
         return state_to_list(vals[0], gids[0]), stats
 
+    @spans.request
     def knn_batch(self, Q, k=1, *, raw=None, window=None, backend="device",
                   shard=None, mesh=None):
         """Batched exact kNN: ((m, k) d2 ascending, (m, k) ids), stats.

@@ -40,6 +40,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import spans
 from .io_model import coalesce_ranges
 from .lower_bounds import mindist_paa_sax2
 from .plan import (
@@ -260,28 +261,42 @@ def _account_fetch(ops, pos: np.ndarray) -> None:
         ops.fetch(pos)
 
 
-def _device_topk(
-    Q: np.ndarray, ops, pos: np.ndarray, k: int, *, exact: bool
+def _device_screen(
+    Q: np.ndarray, ops, trows: np.ndarray, k: int, *, exact: bool
 ) -> tuple[np.ndarray, np.ndarray]:
-    """One fused device pass over the entries at ``pos``: arena gather +
+    """One fused device pass over the arena rows ``trows``: arena gather +
     f32-compute screen + in-kernel slate selection, host f64 re-rank of
     the slate, error-bound certification with host fallback. The arena
     may STORE quantized rows (``ops.screen_dtype``: bf16/int8 with per-row
     scales) — the screen upcasts in-register and the certificate is
     widened by the quantization term, so answers are exact for every
-    storage dtype. Returns ((m, kk) exact d2, (m, kk) GLOBAL ids, -1
+    storage dtype. Returns ((m, kk) exact d2, (m, kk) table rows, -1
     padded)."""
     from .verify_engine import get_engine
 
     view = ops.device_view()
-    trows = ops.table_rows(pos) if ops.table_rows is not None else pos
-    nv, nrows = get_engine(view.device).screen_topk(view, trows, Q, k,
-                                                    exact=exact)
-    if ops.table_ids is not None:
-        gids = np.where(nrows >= 0, ops.table_ids(np.maximum(nrows, 0)), -1)
-    else:
-        gids = nrows
-    return nv, gids
+    return get_engine(view.device).screen_topk(view, trows, Q, k, exact=exact)
+
+
+def _table_rows(ops, pos: np.ndarray) -> np.ndarray:
+    """Entry positions -> rows of the source's arena."""
+    return ops.table_rows(pos) if ops.table_rows is not None else pos
+
+
+def _table_gids(ops, nrows: np.ndarray) -> np.ndarray:
+    """Arena rows -> GLOBAL ids, -1 kept."""
+    if ops.table_ids is None:
+        return nrows
+    return np.where(nrows >= 0, ops.table_ids(np.maximum(nrows, 0)), -1)
+
+
+def _device_topk(
+    Q: np.ndarray, ops, pos: np.ndarray, k: int, *, exact: bool
+) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`_device_screen` over the entries at ``pos``. Returns ((m, kk)
+    exact d2, (m, kk) GLOBAL ids, -1 padded)."""
+    nv, nrows = _device_screen(Q, ops, _table_rows(ops, pos), k, exact=exact)
+    return nv, _table_gids(ops, nrows)
 
 
 # ---------------------------------------------------------------------------
@@ -435,8 +450,11 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
                 replaced = np.append(replaced, False)
         return changed
 
-    def verify(sel: np.ndarray) -> None:
-        nonlocal vals, ids
+    def gather(sel: np.ndarray):
+        """The host half of a round: the positions of the blocks ``sel``
+        past the window and the entry-level screen, their modeled I/O on
+        the device route, and (for that route) their arena rows. Returns
+        (positions, arena rows or None), or None when nothing is left."""
         done[sel] = True
         pos = np.concatenate([blocks[b] for b in sel])
         if ops.index_read is not None:
@@ -455,53 +473,69 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
             stats.entries_pruned += int((~keep).sum())
             pos = pos[keep]
         if pos.size == 0:
-            return
+            return None
         stats.entries_verified += int(pos.size)
-        if _device_ready(ops, pos.size, backend, Q.shape[0]):
+        if not _device_ready(ops, pos.size, backend, Q.shape[0]):
+            return pos, None
+        _account_fetch(ops, pos)
+        return pos, _table_rows(ops, pos)
+
+    def verify(pos: np.ndarray, trows) -> None:
+        nonlocal vals, ids
+        if trows is not None:
             # ONE fused arena pass (gather + screen + in-kernel select);
             # only the certified slate comes back for the f64 re-rank
-            _account_fetch(ops, pos)
-            nv, gids = _device_topk(Q, ops, pos, k, exact=True)
+            nv, nrows = _device_screen(Q, ops, trows, k, exact=True)
+            with spans.span("execute.merge"):
+                vals, ids = merge_topk_state(vals, ids, nv,
+                                             _table_gids(ops, nrows))
+            return
+        data = ops.fetch(pos)
+        if backend == "kernel":
+            # ONE all-pairs topk_ed launch per (source, batch, pass)
+            nv, ni = _kernel_topk_dists(Q, data, k, ops.device)
         else:
-            data = ops.fetch(pos)
-            if backend == "kernel":
-                # ONE all-pairs topk_ed launch per (source, batch, pass)
-                nv, ni = _kernel_topk_dists(Q, data, k, ops.device)
-            else:
-                nv, ni = _screen_topk_exact(Q, data, k)
+            nv, ni = _screen_topk_exact(Q, data, k)
+        with spans.span("execute.merge"):
             gids = np.where(ni >= 0, ops.ids[pos][np.maximum(ni, 0)], -1)
-        vals, ids = merge_topk_state(vals, ids, nv, gids)
+            vals, ids = merge_topk_state(vals, ids, nv, gids)
 
     # seed pass: every active query's single best-bounded block — tightens
     # all radii with one small shared verification
     while True:
-        worst = vals[:, -1]
-        best = np.argmin(lb, axis=1)
-        active = lb[np.arange(m), best] < worst
-        seed = np.unique(best[active])
-        seed = seed[~done[seed]]
-        if seed.size == 0:
-            break
-        if try_refine(seed):
-            continue
-        verify(seed)
+        with spans.span("execute.round"):
+            worst = vals[:, -1]
+            best = np.argmin(lb, axis=1)
+            active = lb[np.arange(m), best] < worst
+            seed = np.unique(best[active])
+            seed = seed[~done[seed]]
+            if seed.size == 0:
+                break
+            if try_refine(seed):
+                continue
+            picked = gather(seed)
+        if picked is not None:
+            verify(*picked)
         break
 
     # bounded rounds: the union of blocks any query still needs, best
     # bounds first so earlier rounds tighten later ones. Blocks no query
     # needs are pruned for the whole batch.
     while True:
-        worst = vals[:, -1]
-        need = (lb < worst[:, None]) & ~done[None, :]
-        todo = np.nonzero(need.any(axis=0))[0]
-        if todo.size == 0:
-            break
-        todo = todo[np.argsort(lb[:, todo].min(axis=0), kind="stable")]
-        chunk = todo[:round_cap]
-        if try_refine(chunk):
-            continue
-        verify(chunk)
-        round_cap = min(round_cap * 2, blocks_per_round)  # adaptive growth
+        with spans.span("execute.round"):
+            worst = vals[:, -1]
+            need = (lb < worst[:, None]) & ~done[None, :]
+            todo = np.nonzero(need.any(axis=0))[0]
+            if todo.size == 0:
+                break
+            todo = todo[np.argsort(lb[:, todo].min(axis=0), kind="stable")]
+            chunk = todo[:round_cap]
+            if try_refine(chunk):
+                continue
+            picked = gather(chunk)
+            round_cap = min(round_cap * 2, blocks_per_round)  # adaptive growth
+        if picked is not None:
+            verify(*picked)
 
     # per-query logical accounting, comparable to summed scalar stats
     worst = vals[:, -1]

@@ -51,6 +51,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import spans
 from .clsm import CLSM, CLSMConfig
 from .ctree import RawStore, state_to_list
 from .storage.backend import StorageEngine, resolve_backend
@@ -148,6 +149,7 @@ class StreamingIndex:
         return cls(cfg)
 
     # ---------------------------------------------------------------- ingest
+    @spans.request
     def ingest(self, series: np.ndarray, ts: np.ndarray) -> np.ndarray:
         """Append a stream batch; returns assigned ids.
 
@@ -213,6 +215,7 @@ class StreamingIndex:
                 Q, t0, t1, k=k, n_blocks=n_blocks)
         return state_to_list(vals[0], gids[0]), stats
 
+    @spans.request
     def window_knn_batch(self, Q, t0: int, t1: int, k: int = 1, *,
                          backend: str = "device", shard=None, mesh=None,
                          snapshot=None):

@@ -52,6 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import spans
 from ..kernels import ops as kops
 
 # passes smaller than this verify on the host: below the floor the launch
@@ -252,11 +253,9 @@ class VerifyEngine:
             "traces": 0,  # first launches at a new pass signature
             "hits": 0,  # launches at an already-seen signature
             "h2d_bytes": 0,  # host->device: arena uploads + rows + queries
-            "d2h_bytes": 0,  # device->host: downloaded slates
             "uploads": 0,  # arena builds/extends
             "fallbacks": 0,  # queries re-screened on host (cert failures)
             "released_arenas": 0,  # arenas retired by the run registry
-            "released_bytes": 0,  # device bytes those arenas held
             "arena_bytes": 0,  # live device arena footprint (all dtypes)
             "arena_dtype": self.dtype,  # the engine's default storage dtype
             "batch_hist": {},  # served batch bucket -> pass count (monotonic)
@@ -268,13 +267,15 @@ class VerifyEngine:
         """Upload a table into a fresh bucketed arena (one h2d copy),
         optionally quantized to the requested storage dtype."""
         sd = self.dtype if dtype in (None, "") else resolve_screen_dtype(dtype)
-        host_table = np.ascontiguousarray(host_table, np.float32)
-        n, d = host_table.shape
-        cap = _bucket_rows(n + 1)
-        mu = host_table.mean(axis=0).astype(np.float32) if n else np.zeros(
-            d, np.float32)
-        centered = np.subtract(host_table, mu[None, :])
-        stored, rscale, vxn2, qerr = _quantize_rows(centered, sd)
+        with spans.span("arena.build", np.asarray(host_table).nbytes):
+            host_table = np.ascontiguousarray(host_table, np.float32)
+            n, d = host_table.shape
+            cap = _bucket_rows(n + 1)
+            mu = host_table.mean(axis=0).astype(np.float32) if n else np.zeros(
+                d, np.float32)
+            centered = np.subtract(host_table, mu[None, :])
+            stored, rscale, vxn2, qerr = _quantize_rows(centered, sd)
+            xn2max = float(vxn2.max()) if n else 0.0
         dev = self.device
         table = torch.zeros((cap, d), dtype=_SCREEN_DTYPES[sd], device=dev)
         table[:n] = stored.to(dev)
@@ -293,7 +294,7 @@ class VerifyEngine:
             xn2=xn2,
             n=n,
             cap=cap,
-            xn2max=float(vxn2.max()) if n else 0.0,
+            xn2max=xn2max,
             dtype=sd,
             scale=scale,
             qerr=qerr,
@@ -325,9 +326,12 @@ class VerifyEngine:
             with self._lock:  # the overflowing arena is being replaced
                 self.stats["arena_bytes"] -= view.nbytes
             return nv
-        chunk = np.subtract(host_table[view.n:], view.mu[None, :],
-                            dtype=np.float32)
-        stored, rscale, vxn2, cqerr = _quantize_rows(chunk, view.dtype)
+        with spans.span("arena.extend", grow * host_table.shape[1] * 4):
+            chunk = np.subtract(host_table[view.n:], view.mu[None, :],
+                                dtype=np.float32)
+            stored, rscale, vxn2, cqerr = _quantize_rows(chunk, view.dtype)
+            host = np.ascontiguousarray(host_table, np.float32)
+            xn2max = max(view.xn2max, float(vxn2.max()))
         dev = view.device
         lo, hi = view.n, n_new
         view.table[lo:hi].copy_(stored.to(dev))
@@ -340,13 +344,13 @@ class VerifyEngine:
             self.stats["uploads"] += 1
             self.stats["h2d_bytes"] += h2d
         return DeviceView(
-            host=np.ascontiguousarray(host_table, np.float32),
+            host=host,
             mu=view.mu,
             table=view.table,
             xn2=view.xn2,
             n=n_new,
             cap=view.cap,
-            xn2max=max(view.xn2max, float(vxn2.max())),
+            xn2max=xn2max,
             dtype=view.dtype,
             scale=view.scale,
             qerr=max(view.qerr, cqerr),
@@ -361,7 +365,6 @@ class VerifyEngine:
         handle, never a forced deallocation under a live reader."""
         with self._lock:
             self.stats["released_arenas"] += 1
-            self.stats["released_bytes"] += view.nbytes
             self.stats["arena_bytes"] -= view.nbytes
 
     # ----------------------------------------------------- the fused pass
@@ -369,23 +372,23 @@ class VerifyEngine:
         rows = ("full", cap) if bb >= cap else bb
         return (mb, rows, s, dtype)
 
-    def _launch(self, view: DeviceView, trows: np.ndarray, Qc: np.ndarray,
-                s: int):
-        """Bucket-pad rows and queries, launch the fused pass, download the
-        slate. Returns host (vals (m, s) f32, rows (m, s) int64, -1 padded)."""
+    def _stage(self, view: DeviceView, trows: np.ndarray, Qc: np.ndarray,
+               s: int):
+        """The host half of a pass: queries and rows padded to their
+        buckets (a full pass takes a row mask instead), counted in the
+        stats. Returns (queries, row list or None, mask or None)."""
         m = Qc.shape[0]
         mb = _bucket_batch(m)
         qpad = np.zeros((mb, Qc.shape[1]), np.float32)
         qpad[:m] = Qc
         bb = max(_bucket_rows(trows.size), _bucket_rows(s, 8))
-        full = bb >= view.cap
-        if full:
+        mask = rows_h = None
+        if bb >= view.cap:
             # full-coverage pass: the gathered bucket would be table-sized
             # anyway, so screen the resident table with the masked-out rows'
             # norms set to the sentinel
             mask = np.zeros(view.cap, bool)
             mask[trows] = True
-            rows_h = None
             h2d = mask.nbytes + qpad.nbytes
         else:
             rows_h = np.full(bb, view.sentinel, np.int32)  # pad: the sentinel
@@ -403,9 +406,15 @@ class VerifyEngine:
                 self._signatures.add(sig)
                 self.stats["traces"] += 1
             self.stats["h2d_bytes"] += h2d
+        return qpad, rows_h, mask
+
+    def _launch(self, view: DeviceView, qpad: np.ndarray, rows_h, mask,
+                s: int, m: int):
+        """Launch the fused pass over the staged queries and rows, download
+        the slate. Returns host (vals (m, s) f32, slate positions (m, s))."""
         dev = view.device
         qc = torch.from_numpy(qpad).to(dev)
-        if full:
+        if mask is not None:
             mask_t = torch.from_numpy(mask).to(dev)
             xn2 = torch.where(mask_t, view.xn2,
                               torch.full_like(view.xn2, kops.BIG_NORM2))
@@ -413,19 +422,20 @@ class VerifyEngine:
         else:
             vals, pidx = _screen_pass(view, torch.from_numpy(rows_h), view.xn2,
                                       qc, s)
-        vals = vals[:m].cpu().numpy()
-        pidx = pidx[:m].cpu().numpy()
+        return vals[:m].cpu().numpy(), pidx[:m].cpu().numpy()
+
+    @staticmethod
+    def _slate_rows(view: DeviceView, vals: np.ndarray, pidx: np.ndarray,
+                    rows_h) -> np.ndarray:
+        """Slate positions -> table rows (a full pass screens rows in
+        order), -1 where a slot holds no real row."""
         invalid = pidx < 0
-        # slate positions -> table rows (the full pass screens rows in order)
-        srows = (pidx if full else rows_h[np.maximum(pidx, 0)]).astype(np.int64)
-        with self._lock:
-            self.stats["d2h_bytes"] += (vals.nbytes + srows.nbytes
-                                        + invalid.nbytes)
+        srows = (pidx if rows_h is None
+                 else rows_h[np.maximum(pidx, 0)]).astype(np.int64)
         # sentinel/masked-out rows surface only when the slate outsizes
         # the candidates; their BIG screen value or row index flags them
-        srows = np.where(invalid | (srows >= view.n) | (vals >= 1e29), -1,
-                         srows)
-        return vals, srows
+        return np.where(invalid | (srows >= view.n) | (vals >= 1e29), -1,
+                        srows)
 
     def screen_topk(
         self,
@@ -459,47 +469,54 @@ class VerifyEngine:
             ]
             return (np.concatenate([p[0] for p in parts]),
                     np.concatenate([p[1] for p in parts]))
-        u = trows.size
-        s = min(k + _SLACK, u)
-        Qc = np.asarray(Q, np.float32) - view.mu[None, :]
-        v_screen, srows = self._launch(view, trows, Qc, s)
-        nv, nrows = _rerank_slate(Q, view.host, srows, k)
-        if s >= u:
-            return nv, nrows  # the slate IS the candidate set: always exact
-        # certificate: anything screened out of the slate has screen d2 >=
-        # the slate's worst, hence true d2 >= worst - 2*bound; a query whose
-        # exact kth distance clears that margin provably lost nothing. For
-        # quantized arenas the screen ranks x_stored = x + e, |e| <= qerr,
-        # which moves a distance by at most 2(|q| + |x|)|e| — widen the
-        # bound by that term (qerr = 0 keeps the pure-f32 certificate).
-        qn = np.sqrt(np.einsum("mn,mn->m", Qc, Qc, dtype=np.float64))
-        xnmax = np.sqrt(max(view.xn2max, 0.0))
-        bound = (4.0 * Q.shape[1] * np.finfo(np.float32).eps * qn * xnmax)
-        if view.qerr > 0.0:
-            bound = bound + 2.0 * (qn + xnmax) * view.qerr
-        kk = min(k, u)
-        kth = nv[:, kk - 1] if nv.shape[1] >= kk else np.full(m, np.inf)
-        certified = (srows >= 0).all(axis=1) & (
-            np.where(np.isfinite(kth), kth, 0.0) <= v_screen[:, -1] - 2.0 * bound
-        )
-        bad = np.nonzero(~certified)[0]
+        with spans.span("verify.stage"):
+            u = trows.size
+            s = min(k + _SLACK, u)
+            Qc = np.asarray(Q, np.float32) - view.mu[None, :]
+            qpad, rows_h, mask = self._stage(view, trows, Qc, s)
+        v_screen, pidx = self._launch(view, qpad, rows_h, mask, s, m)
+        with spans.span("verify.rerank"):
+            srows = self._slate_rows(view, v_screen, pidx, rows_h)
+            nv, nrows = _rerank_slate(Q, view.host, srows, k)
+            if s >= u:
+                return nv, nrows  # the slate IS the candidate set: always exact
+            # certificate: anything screened out of the slate has screen d2
+            # >= the slate's worst, hence true d2 >= worst - 2*bound; a
+            # query whose exact kth distance clears that margin provably
+            # lost nothing. For quantized arenas the screen ranks x_stored =
+            # x + e, |e| <= qerr, which moves a distance by at most
+            # 2(|q| + |x|)|e| — widen the bound by that term (qerr = 0
+            # keeps the pure-f32 certificate).
+            qn = np.sqrt(np.einsum("mn,mn->m", Qc, Qc, dtype=np.float64))
+            xnmax = np.sqrt(max(view.xn2max, 0.0))
+            bound = (4.0 * Q.shape[1] * np.finfo(np.float32).eps * qn * xnmax)
+            if view.qerr > 0.0:
+                bound = bound + 2.0 * (qn + xnmax) * view.qerr
+            kk = min(k, u)
+            kth = nv[:, kk - 1] if nv.shape[1] >= kk else np.full(m, np.inf)
+            certified = (srows >= 0).all(axis=1) & (
+                np.where(np.isfinite(kth), kth, 0.0)
+                <= v_screen[:, -1] - 2.0 * bound
+            )
+            bad = np.nonzero(~certified)[0]
         if bad.size:
             with self._lock:
                 self.stats["fallbacks"] += int(bad.size)
-            if exact:
-                ev, er = _screen_topk_exact(Q[bad], view.host[trows], k)
-            else:  # approximate tiers keep their slack-screen semantics
-                from .execute import _screen_topk_slack
+            with spans.span("verify.fallback"):
+                if exact:
+                    ev, er = _screen_topk_exact(Q[bad], view.host[trows], k)
+                else:  # approximate tiers keep their slack-screen semantics
+                    from .execute import _screen_topk_slack
 
-                ev, er = _screen_topk_slack(Q[bad], view.host[trows], k)
-            pad = nv.shape[1] - ev.shape[1]
-            if pad > 0:
-                ev = np.concatenate(
-                    [ev, np.full((bad.size, pad), np.inf, ev.dtype)], axis=1)
-                er = np.concatenate(
-                    [er, np.full((bad.size, pad), -1, er.dtype)], axis=1)
-            nv[bad] = ev
-            nrows[bad] = np.where(er >= 0, trows[np.maximum(er, 0)], -1)
+                    ev, er = _screen_topk_slack(Q[bad], view.host[trows], k)
+                pad = nv.shape[1] - ev.shape[1]
+                if pad > 0:
+                    ev = np.concatenate(
+                        [ev, np.full((bad.size, pad), np.inf, ev.dtype)], axis=1)
+                    er = np.concatenate(
+                        [er, np.full((bad.size, pad), -1, er.dtype)], axis=1)
+                nv[bad] = ev
+                nrows[bad] = np.where(er >= 0, trows[np.maximum(er, 0)], -1)
         return nv, nrows
 
     # ------------------------------------------------------------ warm-up

@@ -82,17 +82,11 @@ def compile_objects(stem: str) -> tuple[list, str]:
     return objs, log
 
 
-def link(objs, so: Path, cudart: str = "static") -> str:
-    """Link ``objs`` into the shared library ``so`` against the CUDA runtime
-    as ``cudart`` says: "static" (nvcc's default, a copy of the runtime in
-    the library) or "shared" (the toolkit's ``libcudart.so``, which a
-    process that loaded torch's shares); returns what the linker said."""
-    nvcc = _nvcc()
+def link(objs, so: Path) -> str:
+    """Link ``objs`` into the shared library ``so`` with a static copy of the
+    CUDA runtime (nvcc's default); returns what the linker said."""
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    rpath = Path(nvcc).resolve().parents[1] / "lib64"
-    cmd = [nvcc, "-shared", "-cudart", cudart, "-o", str(tmp), *map(str, objs)]
-    if cudart == "shared":
-        cmd[1:1] = ["-Xlinker", f"-rpath={rpath}"]
+    cmd = [_nvcc(), "-shared", "-cudart", "static", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"linking failed ({proc.returncode}):\n"

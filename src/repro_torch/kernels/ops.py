@@ -46,6 +46,7 @@ import numpy as np
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
+from .. import spans
 from ..core.summarization import SummarizationConfig, breakpoints
 from . import ref
 
@@ -188,17 +189,6 @@ def slate_in_passes(step, kk: int, width: int):
     return torch.cat(vals, dim=1), torch.cat(idxs, dim=1), qn2
 
 
-def _prepare(q, rows, tensors):
-    """Contiguity checks, the queries made contiguous and the row list
-    moved to the card as int32."""
-    for t, what in tensors:
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{what} must be contiguous")
-    if rows is not None:
-        rows = rows.to(device=q.device, dtype=torch.int32, non_blocking=True).contiguous()
-    return q.contiguous(), rows
-
-
 _SCREEN_DTYPES = {"screen_select": {torch.float32: 0, torch.bfloat16: 1},
                   "screen_select_quant": {torch.int8: None},
                   "topk_ed": {torch.float32: None}}
@@ -212,27 +202,43 @@ def _launch_screen(name, q, x, scale, xn2, k, kk, rows, n):
     in passes of ``pass_slate`` entries where the slate is longer."""
     from . import _build  # builds the library on first use
 
-    if x.dtype not in _SCREEN_DTYPES[name]:
-        kinds = " or ".join(str(t).removeprefix("torch.") for t in _SCREEN_DTYPES[name])
-        raise TypeError(f"{name} takes {kinds} tables, not {x.dtype}")
-    layout = _build.layout()["screen"]
-    q, rows = _prepare(q, rows, ((x, "x"), (xn2, "xn2"), (scale, "scale")))
-    dev = q.device
-    m, d = q.shape
-    qn2 = torch.empty((m,), dtype=torch.float32, device=dev)
-    stream = _stream(dev)
-    rows_ptr = None if rows is None else rows.data_ptr()
-    lib = _build.library()
-    m_blocks = math.ceil(m / layout["query_block"])
-
-    def one_pass(s, floor):
+    def buffers(s):
+        """A pass's cut of the candidates and its outputs (allocated, not
+        written)."""
         chunk, n_splits = _splits(dev, n, m, s, layout)
         # partial slates and per-query thresholds (8 bytes an entry), then a
         # ticket counter per query block (4 bytes)
         scratch = torch.empty((m * n_splits * s + m + math.ceil(m_blocks / 2),),
                               dtype=torch.int64, device=dev)
-        out_v = torch.empty((m, s), dtype=torch.float32, device=dev)
-        out_i = torch.empty((m, s), dtype=torch.int32, device=dev)
+        return (chunk, n_splits, scratch,
+                torch.empty((m, s), dtype=torch.float32, device=dev),
+                torch.empty((m, s), dtype=torch.int32, device=dev))
+
+    # the host's part of the launch: checks, buffers, the first pass's cut
+    with spans.span("ops.prepare"):
+        if x.dtype not in _SCREEN_DTYPES[name]:
+            kinds = " or ".join(str(t).removeprefix("torch.") for t in _SCREEN_DTYPES[name])
+            raise TypeError(f"{name} takes {kinds} tables, not {x.dtype}")
+        for t, what in ((x, "x"), (xn2, "xn2"), (scale, "scale")):
+            if t is not None and not t.is_contiguous():
+                raise ValueError(f"{what} must be contiguous")
+        layout = _build.layout()["screen"]
+        dev = q.device
+        m, d = q.shape
+        qn2 = torch.empty((m,), dtype=torch.float32, device=dev)
+        stream = _stream(dev)
+        lib = _build.library()
+        m_blocks = math.ceil(m / layout["query_block"])
+        width = layout["pass_slate"]
+        ready = {min(kk, width): buffers(min(kk, width))}
+    # the queries made contiguous and the row list moved to the card as int32
+    q = q.contiguous()
+    if rows is not None:
+        rows = rows.to(device=dev, dtype=torch.int32, non_blocking=True).contiguous()
+    rows_ptr = None if rows is None else rows.data_ptr()
+
+    def one_pass(s, floor):
+        chunk, n_splits, scratch, out_v, out_i = ready.pop(s, None) or buffers(s)
         fv, fi = (None, None) if floor is None else (floor[0].data_ptr(),
                                                      floor[1].data_ptr())
         tail = (n, s, chunk, n_splits, fv, fi, scratch.data_ptr(), qn2.data_ptr(),
@@ -251,7 +257,7 @@ def _launch_screen(name, q, x, scale, xn2, k, kk, rows, n):
         LAUNCHES[name] += 1
         return out_v, out_i, qn2
 
-    out_v, out_i, qn2 = slate_in_passes(one_pass, kk, layout["pass_slate"])
+    out_v, out_i, qn2 = slate_in_passes(one_pass, kk, width)
     vals, idxs = _finish(out_v, out_i, n, k)
     return vals, idxs, qn2
 

@@ -703,6 +703,49 @@ def test_knn_batch_beyond_one_pass_does_not_depend_on_the_device(cuda, backend):
     np.testing.assert_array_equal(out[1][1], want)
 
 
+@pytest.mark.parametrize("k", [5, 200])  # one kernel pass, then two
+def test_host_spans_enclose_no_device_work(cuda, k):
+    """Traced on the card, the port's spans land in the profiler's session
+    and none is copied onto the device timeline, where a span enclosing a
+    launch or a copy would read as device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import spans
+    from repro_torch.core import (CTree, CTreeConfig, RawStore, StreamConfig,
+                                  StreamingIndex, SummarizationConfig)
+
+    rng = np.random.default_rng(4)
+    X = rng.standard_normal((8192, 128)).astype(np.float32).cumsum(axis=1)
+    Q = rng.standard_normal((16, 128)).astype(np.float32).cumsum(axis=1)
+    scfg = SummarizationConfig(series_len=128, n_segments=16, card_bits=8)
+    raw = RawStore(128, device="cuda")
+    ids = raw.append(X)
+    ct = CTree(CTreeConfig(summarization=scfg, block_size=256, device="cuda"))
+    ct.bulk_build(X, ids)
+    index = StreamingIndex(StreamConfig(
+        scheme="BTP", summarization=scfg, buffer_entries=1024, block_size=64,
+        storage="model", device="cuda"))
+    spans.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ct.knn_batch(Q, k=k, raw=raw)
+        for b in range(12):
+            index.ingest(X[b * 512:(b + 1) * 512], np.full(512, b, np.int64))
+            index.window_knn_batch(Q, max(0, b - 6), b, k=k)
+        torch.cuda.synchronize()
+    totals = spans.totals()
+    spans.reset()
+    for name in ("plan.exact", "execute.round", "verify.stage", "verify.rerank",
+                 "ops.prepare", "raw.concat", "arena.build", "arena.extend",
+                 "clsm.insert", "clsm.flush"):
+        assert totals[name]["calls"] > 0, name
+    events = list(prof.profiler.kineto_results.events())
+    on_card = [e.name() for e in events if str(e.device_type()).endswith("CUDA")]
+    assert any("screen_dense_kernel" in n for n in on_card)
+    assert not [n for n in on_card if n.startswith(spans.PREFIX)]
+    host = [e.name() for e in events if e.name().startswith(spans.PREFIX)]
+    assert len(host) == sum(t["calls"] for t in totals.values())
+
+
 def test_file_backed_index_answers_as_the_model_backed_one(cuda, tmp_path):
     """A small file-backed StreamingIndex on the card (its arenas filled
     from memory-mapped files) answers bit for bit as the model-backed one,
