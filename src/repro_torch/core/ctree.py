@@ -67,10 +67,32 @@ __all__ = [
 ]
 
 
+# a full host buffer is replaced by one this many times its rows (or by
+# the rows the store holds, where more)
+GROWTH = 2
+
+
+def _grown(buf: np.ndarray, used: int, need: int) -> np.ndarray:
+    """A new buffer of at least ``need`` rows and ``GROWTH`` times ``buf``'s,
+    holding ``buf``'s first ``used`` rows; ``buf`` itself is left as it
+    is, for whoever still holds a view of it."""
+    out = np.empty((max(need, int(GROWTH * buf.shape[0])),) + buf.shape[1:],
+                   buf.dtype)
+    out[:used] = buf[:used]
+    return out
+
+
 class RawStore:
     """The raw data-series file. Append-only; random reads are accounted.
     Its device arena lives on ``device`` (``"cuda"`` unless the caller says
-    otherwise; a missing card raises here, at construction)."""
+    otherwise; a missing card raises here, at construction).
+
+    Appended batches wait as pending until a read copies them into one
+    host buffer that grows geometrically (``GROWTH``), so a read after an
+    append copies the new rows only. Rows below ``n`` are never written
+    again: an array read before an append or a regrowth keeps its rows (a
+    regrowth moves them to a new buffer and leaves the old one to its
+    holders)."""
 
     def __init__(self, series_len: int, disk: Optional[DiskModel] = None,
                  screen_dtype: Optional[str] = None, device="cuda"):
@@ -80,12 +102,15 @@ class RawStore:
         # arena storage dtype for the device screen tier (f32|bf16|int8;
         # None -> the engine default / REPRO_SCREEN_DTYPE)
         self.screen_dtype = screen_dtype
-        # guards _chunks/_data/_norms2/_dev_view/n: the serving loop appends
-        # from the ingest thread while query threads fetch concurrently
+        # guards the buffers, _pending, _dev_view and n: the serving loop
+        # appends from the ingest thread while query threads fetch
         self._lock = threading.RLock()
-        self._chunks: list[np.ndarray] = []
-        self._data: Optional[np.ndarray] = None
-        self._norms2: Optional[np.ndarray] = None
+        self._pending: list[np.ndarray] = []  # appended, not yet in _buf
+        self._buf = np.empty((0, series_len), np.float32)
+        self._done = 0  # rows of _buf filled
+        self._data: Optional[np.ndarray] = None  # _buf[:n] until an append
+        self._norms2 = np.empty(0, np.float32)
+        self._norms2_done = 0  # rows of _norms2 filled
         self._dev_view = None  # device arena over the whole store (lazy)
         self.n = 0
 
@@ -94,21 +119,28 @@ class RawStore:
         series = np.asarray(series, dtype=np.float32)
         with self._lock:
             ids = np.arange(self.n, self.n + series.shape[0], dtype=np.int64)
-            self._chunks.append(series)
+            self._pending.append(series)
             self._data = None
             self.n += series.shape[0]
         self.disk.write_seq(series.nbytes, offset=int(ids[0]) * self.series_len * 4)
         return ids
 
     def _all(self) -> np.ndarray:
+        """Rows [0, n) of the host buffer, the pending batches copied in."""
         with self._lock:
             if self._data is None:
-                with spans.span("raw.concat", self.n * self.series_len * 4):
-                    self._data = (
-                        np.concatenate(self._chunks, axis=0)
-                        if self._chunks
-                        else np.zeros((0, self.series_len), np.float32)
-                    )
+                row = self.series_len * 4
+                if self.n > self._buf.shape[0] and self._done:
+                    with spans.span("raw.grow", self._done * row):
+                        self._buf = _grown(self._buf, self._done, self.n)
+                with spans.span("raw.concat", (self.n - self._done) * row):
+                    if self.n > self._buf.shape[0]:  # the first rows: n exactly
+                        self._buf = _grown(self._buf, 0, self.n)
+                    for batch in self._pending:
+                        self._buf[self._done:self._done + batch.shape[0]] = batch
+                        self._done += batch.shape[0]
+                    self._pending = []
+                self._data = self._buf[:self.n]
             return self._data
 
     def fetch(self, ids: np.ndarray) -> np.ndarray:
@@ -149,16 +181,18 @@ class RawStore:
     def norms2(self, ids: np.ndarray) -> np.ndarray:
         """Cached squared norms by id (derived data, no modeled I/O): the
         batched verify screens only need |x|^2, not another pass over x.
-        The store is append-only, so the cache extends incrementally — a
-        growing stream never pays a full-store recompute per query batch."""
+        The cache grows as the store's buffer does, so a growing stream
+        computes the norms of its new rows only."""
         with self._lock:
-            if self._norms2 is None or self._norms2.shape[0] < self.n:
+            done = self._norms2_done
+            if done < self.n:
                 a = self._all()
-                done = 0 if self._norms2 is None else self._norms2.shape[0]
-                new = np.einsum("ij,ij->i", a[done:], a[done:])
-                self._norms2 = (new if done == 0
-                                else np.concatenate([self._norms2, new]))
-            return self._norms2[ids]
+                if self.n > self._norms2.shape[0]:
+                    self._norms2 = _grown(self._norms2, done, self.n)
+                self._norms2[done:self.n] = np.einsum("ij,ij->i", a[done:],
+                                                      a[done:])
+                self._norms2_done = self.n
+            return self._norms2[:self.n][ids]
 
 
 def _zone_maps(sax_sorted: np.ndarray, block_size: int,

@@ -136,8 +136,9 @@ class FileStore(RawStore):
             f.flush()
             self.n = int(n)
             self._data = None
-            self._norms2 = None
-            self._chunks = []
+            self._norms2 = np.empty(0, np.float32)
+            self._norms2_done = 0
+            self._pending = []
 
     def overlay(self, row0: int, series: np.ndarray) -> None:
         """Rewrite rows [row0, row0 + B) from a replayed WAL record. The
@@ -150,4 +151,5 @@ class FileStore(RawStore):
             f.flush()
             os.pwrite(f.fileno(), series.tobytes(), row0 * self._row_bytes)
             self._data = None
-            self._norms2 = None
+            self._norms2 = np.empty(0, np.float32)
+            self._norms2_done = 0

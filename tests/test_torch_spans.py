@@ -28,7 +28,7 @@ L = 64
 SCFG = SummarizationConfig(series_len=L, n_segments=8, card_bits=8)
 SPANS = ("plan.exact", "plan.buffer", "execute.round", "execute.merge",
          "verify.stage", "verify.rerank", "verify.fallback", "raw.concat",
-         "arena.build", "arena.extend", "clsm.insert", "clsm.flush",
+         "raw.grow", "arena.build", "arena.extend", "clsm.insert", "clsm.flush",
          "clsm.merge")
 
 
