@@ -50,6 +50,7 @@ from typing import Dict, List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 
+from ... import spans
 from ..ctree import SortedRun, _zone_maps
 from ..io_model import DiskModel
 from ..run_registry import BufferChunk
@@ -60,6 +61,22 @@ from .wal import WriteAheadLog
 
 MANIFEST = "MANIFEST.json"
 BACKENDS = ("model", "file")
+# the measured counters of bytes written, which ``measured()["write_bytes"]``
+# sums: the raw rows, run arrays, WAL records appended, WAL records written
+# again at a rotation, run meta.json and manifest files
+WRITE_COUNTERS = ("raw_write_bytes", "run_write_bytes", "wal_write_bytes",
+                  "wal_rotate_bytes", "meta_write_bytes")
+
+
+def _write_synced(path: str, obj) -> int:
+    """Write ``obj`` as the store's JSON to ``path`` and fsync it; returns
+    the bytes written."""
+    text = json.dumps(obj, indent=1, sort_keys=True).encode()
+    with open(path, "wb") as f:
+        f.write(text)
+        f.flush()
+        os.fsync(f.fileno())
+    return len(text)
 
 
 def resolve_backend(name: str) -> str:
@@ -121,6 +138,7 @@ class StorageEngine:
         self.crash_after: Optional[str] = None
         self.run_seq = 0
         self.run_write_bytes = 0
+        self.meta_write_bytes = 0  # run meta.json and manifest files
         self.manifest_commits = 0
         self._referenced: set = set()
         self._recovered = False
@@ -133,7 +151,7 @@ class StorageEngine:
     # ----------------------------------------------------------------- WAL
     def append_wal(self, chunk: BufferChunk) -> None:
         """Durability point of one ingest batch (fsync'd on return)."""
-        with self._lock:
+        with self._lock, spans.span("storage.wal"):
             self.wal.append(chunk)
         self.maybe_crash("wal-append")
 
@@ -145,6 +163,14 @@ class StorageEngine:
         Empty runs are returned unchanged (nothing to persist)."""
         if run.n == 0:
             return run
+        with spans.span("storage.persist"):
+            d, meta = self._write_run(run)
+        self.maybe_crash("run-persisted")
+        return self._map_run(d, meta, bmin=run.bmin, bmax=run.bmax)
+
+    def _write_run(self, run: SortedRun) -> Tuple[str, dict]:
+        """A new run directory holding ``run``'s arrays and its meta.json,
+        each file fsync'd, then the directory; returns (its path, meta)."""
         with self._lock:
             name = f"run-{self.run_seq:08d}"
             self.run_seq += 1
@@ -179,11 +205,7 @@ class StorageEngine:
             # recovered run screens at the same precision it was built with
             "screen_dtype": run.screen_dtype,
         }
-        mpath = os.path.join(d, "meta.json")
-        with open(mpath, "w") as f:
-            json.dump(meta, f, indent=1, sort_keys=True)
-            f.flush()
-            os.fsync(f.fileno())
+        meta_bytes = _write_synced(os.path.join(d, "meta.json"), meta)
         dfd = os.open(d, os.O_RDONLY)
         try:
             os.fsync(dfd)
@@ -191,9 +213,10 @@ class StorageEngine:
             os.close(dfd)
         with self._lock:
             self.run_write_bytes += written
+            self.meta_write_bytes += meta_bytes
+        spans.add_bytes(written + meta_bytes)
         self.disk.write_seq(written)  # modeled twin of the measured write
-        self.maybe_crash("run-persisted")
-        return self._map_run(d, meta, bmin=run.bmin, bmax=run.bmax)
+        return d, meta
 
     def _map_run(self, d: str, meta: dict, bmin=None, bmax=None) -> SortedRun:
         cfg = SummarizationConfig(series_len=meta["series_len"],
@@ -248,10 +271,9 @@ class StorageEngine:
         man = {"log_id": self.wal.log_id, "run_seq": self.run_seq,
                "levels": names}
         tmp = self._manifest_path() + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(man, f, indent=1, sort_keys=True)
-            f.flush()
-            os.fsync(f.fileno())
+        nbytes = _write_synced(tmp, man)
+        self.meta_write_bytes += nbytes
+        spans.add_bytes(nbytes)
         os.replace(tmp, self._manifest_path())
         dfd = os.open(self.root, os.O_RDONLY)
         try:
@@ -271,7 +293,7 @@ class StorageEngine:
         living in a published run, fsync the raw rows those entries map
         to, and commit a manifest of the post-flush run set."""
         self.maybe_crash("pre-manifest")
-        with self._lock:
+        with self._lock, spans.span("storage.commit"):
             old_log = self.wal.truncate_front(n_entries)
             self.raw.fsync()
             self._write_manifest_locked(snapshot.levels)
@@ -283,7 +305,7 @@ class StorageEngine:
         """The merge commit: one manifest naming the merged run instead of
         its victims (no WAL change — merges move no entries)."""
         self.maybe_crash("merge-pre-manifest")
-        with self._lock:
+        with self._lock, spans.span("storage.commit"):
             self._write_manifest_locked(snapshot.levels)
         self.maybe_crash("merge-post-manifest")
 
@@ -293,7 +315,7 @@ class StorageEngine:
         the active WAL's surviving records (as buffer chunks), after
         deleting everything the manifest does not name. Idempotent; a
         fresh directory recovers to the empty state."""
-        with self._lock:
+        with self._lock, spans.span("storage.recover"):
             man = {"log_id": 0, "run_seq": 0, "levels": []}
             if os.path.exists(self._manifest_path()):
                 with open(self._manifest_path()) as f:
@@ -356,8 +378,12 @@ class StorageEngine:
                 "raw_read_bytes": self.raw.measured_read_bytes,
                 "run_write_bytes": self.run_write_bytes,
                 "wal_write_bytes": self.wal.appended_bytes,
+                "wal_rotate_bytes": self.wal.rotated_bytes,
+                "meta_write_bytes": self.meta_write_bytes,
                 "wal_records": self.wal.records,
                 "manifest_commits": self.manifest_commits,
             }
+            # every byte the five counters above count, each written once
+            out["write_bytes"] = sum(out[k] for k in WRITE_COUNTERS)
         out.update(get_pool().stats())
         return out

@@ -28,6 +28,7 @@ from typing import Optional
 
 import numpy as np
 
+from ... import spans
 from ..ctree import RawStore
 from ..io_model import DiskModel
 
@@ -63,7 +64,7 @@ class FileStore(RawStore):
         ``fsync`` runs once per manifest commit instead of once per batch.
         """
         series = np.ascontiguousarray(series, dtype=np.float32)
-        with self._lock:
+        with self._lock, spans.span("storage.raw_write", series.nbytes):
             ids = np.arange(self.n, self.n + series.shape[0], dtype=np.int64)
             f = self._file_locked()
             f.seek(0, os.SEEK_END)

@@ -39,6 +39,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ... import spans
 from ..run_registry import BufferChunk
 
 _MAGIC = 0xC0C0A105
@@ -108,6 +109,7 @@ class WriteAheadLog:
         self.log_id = 0
         self.records = 0
         self.appended_bytes = 0
+        self.rotated_bytes = 0  # survivors written again into a new log
         self._f = None
         self._mirror: List[BufferChunk] = []  # unflushed entries, FIFO
         os.makedirs(root, exist_ok=True)
@@ -153,6 +155,7 @@ class WriteAheadLog:
             self._mirror.append(chunk)
             self.records += 1
             self.appended_bytes += len(rec)
+            spans.add_bytes(len(rec))
 
     def truncate_front(self, n: int) -> Optional[str]:
         """Drop the oldest ``n`` entries by rotating to a fresh log that
@@ -176,11 +179,14 @@ class WriteAheadLog:
                 self._f.close()
             self.log_id += 1
             new_path = self.path()
+            written = 0
             with open(new_path, "wb") as f:
                 for c in survivors:
-                    f.write(_encode(c, self.series_len))
+                    written += f.write(_encode(c, self.series_len))
                 f.flush()
                 os.fsync(f.fileno())
+            self.rotated_bytes += written
+            spans.add_bytes(written)
             self._mirror = survivors
             self._f = open(new_path, "ab")
             return old_path

@@ -88,6 +88,15 @@ def span(name: str, nbytes: int = 0):
     return _Span(name, nbytes)
 
 
+def add_bytes(nbytes: int) -> None:
+    """Add ``nbytes`` to the byte total of the innermost span open on this
+    thread, for work whose size is known only once it is done (nothing
+    while the profiler is off: no span is open then)."""
+    stack = getattr(_LOCAL, "stack", None)
+    if stack:
+        stack[-1].nbytes += nbytes
+
+
 def request(fn):
     """Mark a public entry point: while the profiler records, the spans
     under its outermost call on a thread carry one request number."""

@@ -10,6 +10,7 @@ larger (or as large as the store, where that is more).
 """
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -148,11 +149,19 @@ def test_one_thread_appends_while_another_reads():
     raw = RawStore(L, device="cpu")
     reads, norms, errors = [], [], []
     done = threading.Event()
+    # on a loaded host a thread can take longer to start than the appender
+    # takes to finish: all three begin together
+    start = threading.Barrier(3, timeout=60)
+    deadline = time.time() + 60
 
     def appender():
         try:
-            for b in batches:
+            start.wait()
+            for i, b in enumerate(batches):
                 raw.append(b)
+                # halfway, the readers have read at least twice (60 s at most)
+                while i == len(batches) // 2 and len(reads) < 2 and time.time() < deadline:
+                    time.sleep(1e-3)
         except Exception as e:  # reported below
             errors.append(e)
         finally:
@@ -160,6 +169,7 @@ def test_one_thread_appends_while_another_reads():
 
     def reader():
         try:
+            start.wait()
             while not done.is_set():
                 a = raw._all()
                 reads.append(a)
