@@ -56,6 +56,15 @@ from .summarization import paa
 
 BACKENDS = ("device", "numpy", "kernel")
 
+# rounds of the exact traversal since the last reset (the seed pass
+# included), and those of them larger than ``blocks_per_round``
+ROUNDS = {"rounds": 0, "grown": 0}
+
+
+def reset_rounds() -> None:
+    for name in ROUNDS:
+        ROUNDS[name] = 0
+
 
 # ---------------------------------------------------------------------------
 # batched top-k state: the array analogue of the per-query bsf heap
@@ -394,7 +403,8 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
        each round is ONE shared verification of the whole batch against the
        round's entries, with an entry-level MINDIST screen against the
        current per-query radii (the batched form of the scalar path's
-       per-entry pruning).
+       per-entry pruning). Rounds of large batches grow past
+       ``blocks_per_round`` while none prunes (see ``may_grow``).
 
     Like the dense ED scan kernel, this trades per-entry early abandoning
     for large regular passes whose extra (query, entry) pairs only ever
@@ -416,8 +426,9 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
     # kernel argument). Small batches also step one block per round so the
     # radius re-checks before every block, exactly like the pre-plan
     # scalar loop.
+    small = m <= 8
     qp = None
-    if ops.sax is not None and m <= 8:
+    if ops.sax is not None and small:
         qp = np.asarray(paa(Q, ops.scfg))  # (m, w) for the entry screen
     # Small batches start at ONE block per round — the radius re-checks
     # before every block, exactly like the pre-plan scalar loop — then the
@@ -426,7 +437,16 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
     # amortizes per-round overhead (and device launches) instead of paying
     # it per block. Verifying a few extra blocks per round can only confirm
     # the exact answer, so answers are invariant to the round structure.
-    round_cap = 1 if m <= 8 else blocks_per_round
+    round_cap = 1 if small else blocks_per_round
+    # Past blocks_per_round a round keeps doubling while the rounds before
+    # it pruned nothing (data on which no bound bites would otherwise pay a
+    # device pass's host work every blocks_per_round blocks), and falls back
+    # to blocks_per_round once one prunes. Only where the round size changes
+    # nothing but that work: a batch without the entry screen (whose (m, u,
+    # w) bound would grow with the round), a source without ADS+'s splits
+    # (which follow the round structure and its modeled I/O), and after a
+    # round verified on the device (a host round fetches its rows).
+    may_grow = not small and src.refine is None
 
     def try_refine(sel: np.ndarray) -> bool:
         nonlocal lb, done, replaced
@@ -514,6 +534,7 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
             if try_refine(seed):
                 continue
             picked = gather(seed)
+            ROUNDS["rounds"] += 1
         if picked is not None:
             verify(*picked)
         break
@@ -521,11 +542,16 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
     # bounded rounds: the union of blocks any query still needs, best
     # bounds first so earlier rounds tighten later ones. Blocks no query
     # needs are pruned for the whole batch.
+    left = None  # blocks still needed after a round that may grow the next
     while True:
         with spans.span("execute.round"):
             worst = vals[:, -1]
             need = (lb < worst[:, None]) & ~done[None, :]
             todo = np.nonzero(need.any(axis=0))[0]
+            if left is not None:
+                # the round pruned nothing iff only its own blocks went
+                round_cap = 2 * round_cap if todo.size == left else blocks_per_round
+                left = None
             if todo.size == 0:
                 break
             todo = todo[np.argsort(lb[:, todo].min(axis=0), kind="stable")]
@@ -533,7 +559,12 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
             if try_refine(chunk):
                 continue
             picked = gather(chunk)
-            round_cap = min(round_cap * 2, blocks_per_round)  # adaptive growth
+            ROUNDS["rounds"] += 1
+            ROUNDS["grown"] += int(chunk.size > blocks_per_round)
+            if may_grow and picked is not None and picked[1] is not None:
+                left = todo.size - chunk.size
+            else:
+                round_cap = min(round_cap * 2, blocks_per_round)  # adaptive growth
         if picked is not None:
             verify(*picked)
 
