@@ -1062,14 +1062,11 @@ def probe_tier(torch, ops, engine, method, shapes, mesh=False):
     ones the latency percentiles use. With ``mesh`` (``--shard mesh``, which
     screens through topk_ed and leaves the engine alone), every call records
     topk_ed's call shapes, and the queries that fall back to the host exact
-    screen (``execute._screen_topk_exact``) are counted."""
-    import importlib
-
+    screen (``host_screen.screen_topk_exact``) are counted."""
+    from repro_torch.core import host_screen
     from repro_torch.core.streaming import StreamingIndex
 
-    # the module (``repro_torch.core`` re-exports its function ``execute``)
-    execute = importlib.import_module("repro_torch.core.execute")
-    real, real_exact = getattr(StreamingIndex, method), execute._screen_topk_exact
+    real, real_exact = getattr(StreamingIndex, method), host_screen.screen_topk_exact
     kernels = {n: getattr(ops, n) for n in ("screen_select", "screen_select_quant")}
     rec = {"n": 0, "traced": [], "calls": [], "launches": collections.Counter(),
            "traced_launches": collections.Counter(), "engine": collections.Counter(),
@@ -1124,12 +1121,12 @@ def probe_tier(torch, ops, engine, method, shapes, mesh=False):
 
     setattr(StreamingIndex, method, probed)
     if mesh:
-        execute._screen_topk_exact = exact
+        host_screen.screen_topk_exact = exact
     try:
         yield rec
     finally:
         setattr(StreamingIndex, method, real)
-        execute._screen_topk_exact = real_exact
+        host_screen.screen_topk_exact = real_exact
         for n, fn in kernels.items():
             setattr(ops, n, fn)
 
@@ -1412,7 +1409,7 @@ def phase_mesh(torch, ops, ref, serve, engine, model_served):
     import numpy as np
 
     from repro_torch.core import SummarizationConfig, distributed
-    from repro_torch.core.execute import _rerank_slate
+    from repro_torch.core.host_screen import rerank_slate
 
     t_phase = time.perf_counter()
     launches = collections.Counter()
@@ -1595,7 +1592,7 @@ def phase_mesh(torch, ops, ref, serve, engine, model_served):
     launches.update(got)
     if got["topk_ed"] == 0:
         fail(f"{name}: mesh_topk_candidates launched no topk_ed")
-    nv, nrows = _rerank_slate(qs, series_v, rows, K)
+    nv, nrows = rerank_slate(qs, series_v, rows, K)
     sel = torch.from_numpy(gids_v[nrows]).to(DEVICE)
     bad = sel != want
     if bool(bad.any()):  # exact f64 ties may swap

@@ -295,17 +295,14 @@ class ADSIndex:
 
         # device arena: full mode owns the flat table (row == flat position);
         # adaptive mode verifies against the RawStore arena (row == global id)
-        screen_dtype = None
         if self.cfg.mode == "full":
             device_view = lambda: self._flat_device_view(flat)
             table_rows = None  # identity
             table_ids = lambda r: flat["ids"][r]
-            screen_dtype = self.cfg.screen_dtype
         elif raw is not None:
             device_view = raw.device_view
             table_rows = lambda p: flat["ids"][p]
             table_ids = lambda r: r  # raw rows ARE global ids
-            screen_dtype = raw.screen_dtype
         else:
             device_view = table_rows = table_ids = None
             fetch_account = None
@@ -321,7 +318,6 @@ class ADSIndex:
             table_rows=table_rows,
             table_ids=table_ids,
             fetch_account=fetch_account,
-            screen_dtype=screen_dtype,
             device=self.device,
         )
 

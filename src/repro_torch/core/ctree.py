@@ -428,19 +428,16 @@ class SortedRun:
         # device arena accessors: materialized runs own their arena (table
         # row == entry position); non-materialized runs verify against the
         # RawStore's arena (table row == global id)
-        screen_dtype = None
         if self.materialized:
             device_view = self.device_view
             table_rows = None  # identity
             table_ids = lambda r: self.ids[r]
             fetch_account = lambda p: self._account_entries(p, disk, sequential)
-            screen_dtype = self.screen_dtype
         elif raw is not None:
             device_view = raw.device_view
             table_rows = lambda p: self.ids[p]
             table_ids = lambda r: r  # raw rows ARE global ids
             fetch_account = lambda p: raw.account_fetch(self.ids[p])
-            screen_dtype = raw.screen_dtype
         else:
             device_view = table_rows = table_ids = fetch_account = None
         prefetch_ranges = None
@@ -468,7 +465,6 @@ class SortedRun:
             table_ids=table_ids,
             fetch_account=fetch_account,
             prefetch_ranges=prefetch_ranges,
-            screen_dtype=screen_dtype,
             device=self.device,
         )
 

@@ -380,7 +380,7 @@ def mesh_topk_candidates(Q, X, ksel: int, *, mesh: DeviceMesh = None, device="cu
     stable re-select, and one more ``all_gather`` over the query axis gives
     every rank the whole slate. Returns ((m, ksel) d2 f32, (m, ksel) rows
     into X, -1 = invalid) as host arrays — callers re-rank the slate
-    exactly in f64 (``execute._rerank_slate``), so the f32 screen never
+    exactly in f64 (``host_screen.rerank_slate``), so the f32 screen never
     decides final distances. Without ``mesh``, :func:`default_batch_mesh`
     of ``device``. No candidate row is padded: the kernel takes any
     count."""

@@ -39,8 +39,11 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .. import spans
+from ..kernels import ops as kernel_ops
+from . import host_screen, verify_engine
 from .io_model import coalesce_ranges
 from .lower_bounds import mindist_paa_sax2
 from .plan import (
@@ -112,137 +115,23 @@ def recall_at_k(approx_ids: np.ndarray, exact_ids: np.ndarray) -> float:
 # ---------------------------------------------------------------------------
 # candidate verification: one screen + exact re-rank, three backends
 # ---------------------------------------------------------------------------
-def _rerank_slate(
-    Q: np.ndarray, X: np.ndarray, rows: np.ndarray, k: int
-) -> tuple[np.ndarray, np.ndarray]:
-    """Exact f64 re-rank of per-query candidate slates.
-
-    ``rows`` is (m, s) row indices into ``X`` (negative = invalid slot).
-    Returns ((m, kk) d2 ascending f32, (m, kk) rows, -1 padded), kk =
-    min(k, |X|) — the common tail of every screening backend, so returned
-    distances are exact however the slate was selected."""
-    invalid = rows < 0
-    sel = np.where(invalid, 0, rows)
-    diff = X[sel].astype(np.float64) - Q[:, None, :].astype(np.float64)
-    d2 = np.einsum("mkn,mkn->mk", diff, diff)
-    d2 = np.where(invalid, np.inf, d2.astype(np.float32))
-    kk = min(k, X.shape[0])
-    o = np.argsort(d2, axis=1, kind="stable")[:, :kk]
-    return (
-        np.take_along_axis(d2, o, axis=1),
-        np.take_along_axis(np.where(invalid, -1, rows), o, axis=1),
-    )
-
-
-def _screen_topk_exact(
-    Q: np.ndarray, data: np.ndarray, k: int
-) -> tuple[np.ndarray, np.ndarray]:
-    """Provably exact top-k: one shared f32 sgemm screen, then f64 re-rank
-    of everything inside the error-bound-widened kth radius.
-
-    The screen's only error source is the f32 cross product, whose
-    classical bound (2 n u |q||x|) widens the kth-best radius — selection
-    stays provably sufficient however ill-conditioned the data. The f64
-    re-rank of the selected tail is centered by the tail mean (squared ED
-    is translation-invariant), so the matmul form stays accurate even
-    under catastrophic cancellation (a common offset much larger than the
-    spread); the centering is tail-sized, i.e. free."""
-    m = Q.shape[0]
-    u = data.shape[0]
-    kk = min(k, u)
-    x32 = np.ascontiguousarray(data, np.float32)
-    g = x32 @ Q.T  # (U, m) f32 sgemm — the shared heavy pass
-    xsq = np.einsum("un,un->u", x32, x32, dtype=np.float64)
-    qsq = np.einsum("mn,mn->m", Q, Q, dtype=np.float64)
-    d2a = qsq[:, None] + xsq[None, :] - 2.0 * g.T  # (m, U) f64-ish
-    if kk < u:
-        part = np.argpartition(d2a, kk - 1, axis=1)[:, :kk]
-    else:
-        part = np.broadcast_to(np.arange(kk), (m, kk)).copy()
-    kth = np.take_along_axis(d2a, part, axis=1).max(axis=1)  # (m,)
-    qn = np.sqrt(qsq)
-    xn_max = float(np.sqrt(xsq.max()))
-    bound = 4.0 * data.shape[1] * np.finfo(np.float32).eps * qn * xn_max
-    cand = d2a <= (kth + 2.0 * bound)[:, None]  # (m, U)
-    sel = np.nonzero(cand.any(axis=0))[0]  # (S,) small tail
-    x64 = data[sel].astype(np.float64)
-    mu = x64.mean(axis=0) if sel.size else 0.0  # tail-sized centering
-    x64 -= mu
-    q64 = Q.astype(np.float64) - mu
-    d2e = (
-        np.einsum("mn,mn->m", q64, q64)[:, None]
-        + np.einsum("sn,sn->s", x64, x64)[None, :]
-        # this matmul IS the exact f64 re-rank tail, not the f32 screen
-        - 2.0 * (q64 @ x64.T)  # palmlint: ignore[precision-discipline]
-    )  # (m, S) exact (centered, so the matmul form cannot cancel)
-    d2e = np.maximum(d2e, 0.0).astype(np.float32)
-    kks = min(kk, d2e.shape[1])
-    if kks < d2e.shape[1]:
-        p2 = np.argpartition(d2e, kks - 1, axis=1)[:, :kks]
-    else:
-        p2 = np.broadcast_to(np.arange(kks), (m, kks)).copy()
-    nv = np.take_along_axis(d2e, p2, axis=1)
-    o = np.argsort(nv, axis=1, kind="stable")
-    return (
-        np.take_along_axis(nv, o, axis=1),
-        sel[np.take_along_axis(p2, o, axis=1)].astype(np.int64),
-    )
-
-
-def _screen_topk_slack(
-    Q: np.ndarray,
-    data: np.ndarray,
-    k: int,
-    xsq: Optional[np.ndarray] = None,
-) -> tuple[np.ndarray, np.ndarray]:
-    """Slack-8 top-k: rank by one f32 sgemm screen (|q|^2 is constant per
-    row, so the screen orders by |x|^2 - 2<q, x> only), then exactly
-    re-rank the k+8 slate in f64 — the host twin of the kernel path, with
-    cached squared norms (``xsq``) so nothing union-sized is recomputed."""
-    m = Q.shape[0]
-    u = data.shape[0]
-    if xsq is None:
-        x32 = np.asarray(data, np.float32)
-        xsq = np.einsum("un,un->u", x32, x32)
-    d2a = Q @ data.T  # (m, U) f32 sgemm — the heavy pass
-    np.multiply(d2a, -2.0, out=d2a)
-    np.add(d2a, xsq[None, :], out=d2a)
-    ksel = min(k + 8, u)  # slack absorbs f32 near-tie reordering
-    if ksel < u:
-        part = np.argpartition(d2a, ksel - 1, axis=1)[:, :ksel]
-    else:
-        part = np.broadcast_to(np.arange(u), (m, u)).copy()
-    diff = data[part].astype(np.float64) - Q.astype(np.float64)[:, None, :]
-    d2e = np.einsum("mkn,mkn->mk", diff, diff).astype(np.float32)
-    kk = min(k, u)
-    o = np.argsort(d2e, axis=1, kind="stable")[:, :kk]
-    return (
-        np.take_along_axis(d2e, o, axis=1),
-        np.take_along_axis(part, o, axis=1).astype(np.int64),
-    )
-
-
 def _kernel_topk_dists(
     Q: np.ndarray, data: np.ndarray, k: int, device
 ) -> tuple[np.ndarray, np.ndarray]:
     """Top-k distances of Q (m, n) against data (E, n) via one ``topk_ed``
-    launch on ``device`` (the pass's rows uploaded from the host), slack-8
+    launch on ``device`` (the pass's rows uploaded from the host), slack
     slate + exact f64 re-rank."""
-    import torch
-
-    from ..kernels import ops as kernel_ops
-
     if device is None:
         raise ValueError('backend="kernel" needs the source\'s device '
                          "(SourceOps.device)")
     data = np.ascontiguousarray(data, np.float32)
-    ksel = min(k + 8, data.shape[0])  # slack absorbs f32 near-tie reordering
+    ksel = min(k + host_screen.SLACK, data.shape[0])
     q = torch.from_numpy(np.ascontiguousarray(Q, np.float32)).to(device)
     # rows of a file-backed run arrive as a read-only memmap slice: copy
     # them out, so that no tensor aliases the mapping
     x = torch.from_numpy(data if data.flags.writeable else data.copy()).to(device)
     _, rows = kernel_ops.topk_ed_bucketed(q, x, ksel)
-    return _rerank_slate(Q, data, rows, k)
+    return host_screen.rerank_slate(Q, data, rows, k)
 
 
 # ---------------------------------------------------------------------------
@@ -255,19 +144,8 @@ def _device_ready(ops, n_candidates: int, backend: str, m: int) -> bool:
     tail runs instead (answers are identical either way)."""
     if backend != "device" or ops.device_view is None:
         return False
-    from .verify_engine import MIN_DEVICE_BATCH, MIN_DEVICE_CANDIDATES
-
-    return n_candidates >= MIN_DEVICE_CANDIDATES and m >= MIN_DEVICE_BATCH
-
-
-def _account_fetch(ops, pos: np.ndarray) -> None:
-    """Modeled-I/O accounting for a device-verified pass: the engine reads
-    the arena, not the store, but serving still pays the host engine's
-    modeled I/O so stats and heat maps stay comparable."""
-    if ops.fetch_account is not None:
-        ops.fetch_account(pos)
-    elif ops.fetch is not None:  # pragma: no cover - plumbing gap fallback
-        ops.fetch(pos)
+    return (n_candidates >= verify_engine.MIN_DEVICE_CANDIDATES
+            and m >= verify_engine.MIN_DEVICE_BATCH)
 
 
 def _device_screen(
@@ -276,15 +154,14 @@ def _device_screen(
     """One fused device pass over the arena rows ``trows``: arena gather +
     f32-compute screen + in-kernel slate selection, host f64 re-rank of
     the slate, error-bound certification with host fallback. The arena
-    may STORE quantized rows (``ops.screen_dtype``: bf16/int8 with per-row
+    may STORE quantized rows (the view's ``dtype``: bf16/int8 with per-row
     scales) — the screen upcasts in-register and the certificate is
     widened by the quantization term, so answers are exact for every
     storage dtype. Returns ((m, kk) exact d2, (m, kk) table rows, -1
     padded)."""
-    from .verify_engine import get_engine
-
     view = ops.device_view()
-    return get_engine(view.device).screen_topk(view, trows, Q, k, exact=exact)
+    engine = verify_engine.get_engine(view.device)
+    return engine.screen_topk(view, trows, Q, k, exact=exact)
 
 
 def _table_rows(ops, pos: np.ndarray) -> np.ndarray:
@@ -376,7 +253,7 @@ def _exec_dense(src: DenseSource, plan, Q, k, vals, ids):
     """Brute-force a small set (buffers / pending inserts): window filter,
     fetch, one exact screen. Dense sources serve the EXACT tier (the write
     buffer is part of every index's ground truth), so they use the
-    error-bound screen — the slack-8 form can mis-rank under f32
+    error-bound screen — the slack form can mis-rank under f32
     cancellation (large common offsets). By long-standing convention these
     in-memory scans contribute neither stats nor modeled I/O beyond their
     fetch."""
@@ -389,7 +266,7 @@ def _exec_dense(src: DenseSource, plan, Q, k, vals, ids):
     if pos.size == 0:
         return vals, ids
     data = src.ops.fetch(pos)
-    nv, ni = _screen_topk_exact(Q, data, k)
+    nv, ni = host_screen.screen_topk_exact(Q, data, k)
     return merge_topk_state(vals, ids, nv, src.ops.ids[pos][ni])
 
 
@@ -497,7 +374,7 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
         stats.entries_verified += int(pos.size)
         if not _device_ready(ops, pos.size, backend, Q.shape[0]):
             return pos, None
-        _account_fetch(ops, pos)
+        ops.fetch_account(pos)
         return pos, _table_rows(ops, pos)
 
     def verify(pos: np.ndarray, trows) -> None:
@@ -515,7 +392,7 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
             # ONE all-pairs topk_ed launch per (source, batch, pass)
             nv, ni = _kernel_topk_dists(Q, data, k, ops.device)
         else:
-            nv, ni = _screen_topk_exact(Q, data, k)
+            nv, ni = host_screen.screen_topk_exact(Q, data, k)
         with spans.span("execute.merge"):
             gids = np.where(ni >= 0, ops.ids[pos][np.maximum(ni, 0)], -1)
             vals, ids = merge_topk_state(vals, ids, nv, gids)
@@ -651,7 +528,7 @@ def _exec_range(src: RangeSource, plan, Q, k, vals, ids, stats, backend):
                 dsel[j01[g, 0]:j01[g, 1]] = True
             dacct = dsel & ~hsel  # rows the host fetch already accounted
             if dacct.any():
-                _account_fetch(ops, upos[dacct])
+                ops.fetch_account(upos[dacct])
     for g in range(n_groups):
         qidx = qidx_g[g]
         j0, j1 = int(j01[g, 0]), int(j01[g, 1])
@@ -681,7 +558,7 @@ def _exec_range(src: RangeSource, plan, Q, k, vals, ids, stats, backend):
                          if ops.norms2 is not None else None)
             else:
                 xsq_g = None if xsq_h is None else xsq_h[rows]
-            nv, ni = _screen_topk_slack(Q[qidx], sub, k, xsq=xsq_g)
+            nv, ni = host_screen.screen_topk_slack(Q[qidx], sub, k, xsq=xsq_g)
             gi = gid[ni]
         mv, mi = merge_topk_state(vals[qidx], ids[qidx], nv, gi)
         vals[qidx], ids[qidx] = mv, mi
@@ -707,7 +584,7 @@ def _exec_group(src: GroupSource, plan, Q, k, vals, ids, stats, backend):
             continue
         stats.entries_verified += int(pos.size)
         if _device_ready(ops, pos.size, backend, qidx.size):
-            _account_fetch(ops, pos)
+            ops.fetch_account(pos)
             nv, gi = _device_topk(Q[qidx], ops, pos, k, exact=False)
         else:  # small leaf groups take the host tail (same answers)
             data = ops.fetch(pos)
@@ -715,7 +592,7 @@ def _exec_group(src: GroupSource, plan, Q, k, vals, ids, stats, backend):
                 nv, ni = _kernel_topk_dists(Q[qidx], data, k, ops.device)
                 gi = np.where(ni >= 0, ops.ids[pos][np.maximum(ni, 0)], -1)
             else:
-                nv, ni = _screen_topk_slack(Q[qidx], data, k)
+                nv, ni = host_screen.screen_topk_slack(Q[qidx], data, k)
                 gi = ops.ids[pos][ni]
         mv, mi = merge_topk_state(vals[qidx], ids[qidx], nv, gi)
         vals[qidx], ids[qidx] = mv, mi
@@ -773,7 +650,7 @@ def _execute_mesh(plan, Q, k, vals, ids, stats, mesh):
     X = np.concatenate(chunks_data)
     gids_all = np.concatenate(chunks_ids)
     c = X.shape[0]
-    ksel = min(k + 8, c)  # slack absorbs f32 near-tie reordering
+    ksel = min(k + host_screen.SLACK, c)
     # Center the table before the f32 device screen: squared ED is
     # translation-invariant, and removing the common offset kills the
     # |x|^2 - 2<q, x> cancellation that would otherwise scramble the f32
@@ -781,34 +658,18 @@ def _execute_mesh(plan, Q, k, vals, ids, stats, mesh):
     mu = X.mean(axis=0)
     d2s, rows = mesh_topk_candidates(Q - mu, X - mu, ksel, mesh=mesh,
                                      device=device if device is not None else "cuda")
-    nv, nrows = _rerank_slate(Q, X, rows, k)
-    # Certify the screen: any candidate outside the slate has f32 screen
-    # distance >= the slate's worst, hence true distance >= worst - 2*bound
-    # (classical f32 matmul error, the _screen_topk_exact bound). Queries
-    # whose f64-re-ranked kth distance does not clear that margin — or with
-    # unfillable slate slots — fall back to the provably exact host screen
-    # over the gathered table, so mesh answers match the single-device
-    # engine on every input, not just well-conditioned ones.
+    nv, nrows = host_screen.rerank_slate(Q, X, rows, k)
+    # Certify the screen as the single-device engine does; queries that
+    # fail fall back to the provably exact host screen over the gathered
+    # table, so mesh answers match the engine on every input.
     if ksel < c:
         qn = np.sqrt(np.einsum("mn,mn->m", Q - mu, Q - mu, dtype=np.float64))
         xn_max = float(np.sqrt(np.einsum("cn,cn->c", X - mu, X - mu,
                                          dtype=np.float64).max()))
-        bound = 4.0 * X.shape[1] * np.finfo(np.float32).eps * qn * xn_max
-        kth = nv[:, min(k, nv.shape[1]) - 1] if nv.shape[1] else np.zeros(m)
-        certified = (rows >= 0).all(axis=1) & (
-            np.where(np.isfinite(kth), kth, 0.0)
-            <= d2s[:, -1] - 2.0 * bound
-        )
-        bad = np.nonzero(~certified)[0]
+        bad = host_screen.uncertified(nv, rows, d2s[:, -1], qn, xn_max,
+                                      X.shape[1])
         if bad.size:
-            ev, er = _screen_topk_exact(Q[bad], X, k)
-            pad = nv.shape[1] - ev.shape[1]
-            if pad > 0:
-                ev = np.concatenate(
-                    [ev, np.full((bad.size, pad), np.inf, ev.dtype)], axis=1)
-                er = np.concatenate(
-                    [er, np.full((bad.size, pad), -1, er.dtype)], axis=1)
-            nv[bad], nrows[bad] = ev, er
+            host_screen.rescreen(nv, nrows, bad, Q, X, k)
     gi = np.where(nrows >= 0, gids_all[np.maximum(nrows, 0)], -1)
     vals, ids = merge_topk_state(vals, ids, nv, gi)
     return (vals, ids), stats

@@ -104,10 +104,6 @@ class SourceOps:
     # async readahead of coalesced [lo, hi) row spans (file-backed runs
     # hand them to the readahead pool); advisory — answers never depend on it
     prefetch_ranges: Optional[Callable[[List[Tuple[int, int]]], None]] = None
-    # the storage dtype of the arena behind device_view (f32|bf16|int8;
-    # None = the engine default). Informational: the arena itself carries
-    # the authoritative dtype, this mirrors it into plans for introspection
-    screen_dtype: Optional[str] = None
     # the device the source's index lives on: backend="kernel" uploads each
     # pass's rows there and launches topk_ed on it
     device: Optional[object] = None

@@ -54,6 +54,7 @@ import torch
 
 from .. import spans
 from ..kernels import ops as kops
+from .host_screen import SLACK, rerank_slate, rescreen, uncertified
 
 # passes smaller than this verify on the host: below the floor the launch
 # overhead rivals the whole NumPy screen, so the device path would lose
@@ -66,8 +67,6 @@ MIN_DEVICE_CANDIDATES = 1024
 # same m <= 8 boundary where the executor already switches traversal policy
 # (entry-level MINDIST screen, one-block seed rounds).
 MIN_DEVICE_BATCH = 9
-
-_SLACK = 8  # slate slack beyond k: absorbs f32 near-tie reordering
 
 # large query batches screen in chunks of this many rows, which also caps
 # the batch-bucket ladder at one signature per chunk shape
@@ -194,12 +193,43 @@ def view_from_arrays(host, mu, table, xn2, scale, n, cap, xn2max, dtype,
     scale_t = None
     if scale is not None:
         scale_t = torch.from_numpy(np.array(scale, np.float32, copy=True)).to(dev)
-    nbytes = (t.numel() * t.element_size() + xn2_t.numel() * 4
-              + (0 if scale_t is None else scale_t.numel() * 4))
     return DeviceView(
         host=np.ascontiguousarray(host, np.float32), mu=np.asarray(mu, np.float32),
         table=t, xn2=xn2_t, n=int(n), cap=int(cap), xn2max=float(xn2max),
-        dtype=dtype, scale=scale_t, qerr=float(qerr), nbytes=nbytes)
+        dtype=dtype, scale=scale_t, qerr=float(qerr),
+        nbytes=_footprint(t, xn2_t, scale_t))
+
+
+def _footprint(table: torch.Tensor, xn2: torch.Tensor, scale) -> int:
+    """An arena's device bytes: table, norms and int8 scales."""
+    return (table.numel() * table.element_size() + xn2.numel() * 4
+            + (0 if scale is None else scale.numel() * 4))
+
+
+def _center_rows(host: np.ndarray, mu: np.ndarray, lo: int, dtype: str):
+    """The host half of an arena write: rows ``[lo:]`` of the f32 table
+    ``host`` centered by ``mu`` and quantized (:func:`_quantize_rows`).
+    Returns ``(stored, scale, xn2, xn2max, qerr)``, ``xn2max`` the largest
+    stored squared norm (0.0 for no rows)."""
+    stored, scale, xn2, qerr = _quantize_rows(
+        np.subtract(host[lo:], mu[None, :]), dtype)
+    return stored, scale, xn2, float(xn2.max()) if xn2.size else 0.0, qerr
+
+
+def _write_rows(view: DeviceView, lo: int, rows) -> int:
+    """The device half of an arena write: rows from
+    :func:`_center_rows` copied into the arena's table, norms and int8
+    scales from row ``lo`` on. Returns the bytes copied."""
+    stored, scale, xn2 = rows[:3]
+    hi = lo + xn2.shape[0]
+    # host to arena slice: no device-side copy of the rows is made
+    view.table[lo:hi].copy_(stored)
+    view.xn2[lo:hi].copy_(torch.from_numpy(xn2))
+    nbytes = stored.numel() * stored.element_size() + xn2.nbytes
+    if scale is not None:
+        view.scale[lo:hi].copy_(torch.from_numpy(scale))
+        nbytes += scale.nbytes
+    return nbytes
 
 
 def _bucket_rows(n: int, lo: int = 64) -> int:
@@ -253,13 +283,21 @@ class VerifyEngine:
             "traces": 0,  # first launches at a new pass signature
             "hits": 0,  # launches at an already-seen signature
             "h2d_bytes": 0,  # host->device: arena uploads + rows + queries
+            "d2h_bytes": 0,  # device->host: downloaded slates
             "uploads": 0,  # arena builds/extends
             "fallbacks": 0,  # queries re-screened on host (cert failures)
             "released_arenas": 0,  # arenas retired by the run registry
+            "released_bytes": 0,  # device bytes those arenas held
             "arena_bytes": 0,  # live device arena footprint (all dtypes)
             "arena_dtype": self.dtype,  # the engine's default storage dtype
             "batch_hist": {},  # served batch bucket -> pass count (monotonic)
         }
+
+    def _count(self, **deltas) -> None:
+        """Add to the engine's counters (under its lock)."""
+        with self._lock:
+            for key, v in deltas.items():
+                self.stats[key] += v
 
     # ------------------------------------------------------------- arenas
     def build_view(self, host_table: np.ndarray,
@@ -268,42 +306,24 @@ class VerifyEngine:
         optionally quantized to the requested storage dtype."""
         sd = self.dtype if dtype in (None, "") else resolve_screen_dtype(dtype)
         with spans.span("arena.build", np.asarray(host_table).nbytes):
-            host_table = np.ascontiguousarray(host_table, np.float32)
-            n, d = host_table.shape
+            host = np.ascontiguousarray(host_table, np.float32)
+            n, d = host.shape
             cap = _bucket_rows(n + 1)
-            mu = host_table.mean(axis=0).astype(np.float32) if n else np.zeros(
+            mu = host.mean(axis=0).astype(np.float32) if n else np.zeros(
                 d, np.float32)
-            centered = np.subtract(host_table, mu[None, :])
-            stored, rscale, vxn2, qerr = _quantize_rows(centered, sd)
-            xn2max = float(vxn2.max()) if n else 0.0
+            rows = _center_rows(host, mu, 0, sd)
         dev = self.device
         table = torch.zeros((cap, d), dtype=_SCREEN_DTYPES[sd], device=dev)
-        table[:n] = stored.to(dev)
         xn2 = torch.full((cap,), kops.BIG_NORM2, dtype=torch.float32, device=dev)
-        xn2[:n] = torch.from_numpy(vxn2).to(dev)
-        scale = None
-        if rscale is not None:
-            scale = torch.ones((cap,), dtype=torch.float32, device=dev)
-            scale[:n] = torch.from_numpy(rscale).to(dev)
-        nbytes = (table.numel() * table.element_size() + cap * 4
-                  + (cap * 4 if scale is not None else 0))
+        scale = (torch.ones((cap,), dtype=torch.float32, device=dev)
+                 if sd == "int8" else None)
+        xn2max, qerr = rows[3:]
         view = DeviceView(
-            host=host_table,
-            mu=mu,
-            table=table,
-            xn2=xn2,
-            n=n,
-            cap=cap,
-            xn2max=xn2max,
-            dtype=sd,
-            scale=scale,
-            qerr=qerr,
-            nbytes=nbytes,
-        )
-        with self._lock:
-            self.stats["uploads"] += 1
-            self.stats["h2d_bytes"] += nbytes
-            self.stats["arena_bytes"] += nbytes
+            host=host, mu=mu, table=table, xn2=xn2, n=n, cap=cap,
+            xn2max=xn2max, dtype=sd, scale=scale, qerr=qerr,
+            nbytes=_footprint(table, xn2, scale))
+        _write_rows(view, 0, rows)
+        self._count(uploads=1, h2d_bytes=view.nbytes, arena_bytes=view.nbytes)
         return view
 
     def extend_view(self, view: DeviceView, host_table: np.ndarray) -> DeviceView:
@@ -323,39 +343,17 @@ class VerifyEngine:
         pad = _bucket_rows(grow) - grow  # the reference's chunk bucketing
         if n_new + pad + 1 > view.cap:
             nv = self.build_view(host_table, dtype=view.dtype)
-            with self._lock:  # the overflowing arena is being replaced
-                self.stats["arena_bytes"] -= view.nbytes
+            self._count(arena_bytes=-view.nbytes)  # the overflowing arena
             return nv
         with spans.span("arena.extend", grow * host_table.shape[1] * 4):
-            chunk = np.subtract(host_table[view.n:], view.mu[None, :],
-                                dtype=np.float32)
-            stored, rscale, vxn2, cqerr = _quantize_rows(chunk, view.dtype)
             host = np.ascontiguousarray(host_table, np.float32)
-            xn2max = max(view.xn2max, float(vxn2.max()))
-        dev = view.device
-        lo, hi = view.n, n_new
-        view.table[lo:hi].copy_(stored.to(dev))
-        view.xn2[lo:hi].copy_(torch.from_numpy(vxn2).to(dev))
-        h2d = stored.numel() * stored.element_size() + vxn2.nbytes
-        if rscale is not None:
-            view.scale[lo:hi].copy_(torch.from_numpy(rscale).to(dev))
-            h2d += rscale.nbytes
-        with self._lock:
-            self.stats["uploads"] += 1
-            self.stats["h2d_bytes"] += h2d
-        return DeviceView(
-            host=host,
-            mu=view.mu,
-            table=view.table,
-            xn2=view.xn2,
-            n=n_new,
-            cap=view.cap,
-            xn2max=xn2max,
-            dtype=view.dtype,
-            scale=view.scale,
-            qerr=max(view.qerr, cqerr),
-            nbytes=view.nbytes,  # in-place: capacity (and footprint) fixed
-        )
+            rows = _center_rows(host, view.mu, view.n, view.dtype)
+        self._count(uploads=1, h2d_bytes=_write_rows(view, view.n, rows))
+        xn2max, qerr = rows[3:]
+        # in place: capacity (and footprint) fixed
+        return dataclasses.replace(
+            view, host=host, n=n_new, xn2max=max(view.xn2max, xn2max),
+            qerr=max(view.qerr, qerr))
 
     def release_view(self, view: DeviceView) -> None:
         """Retire an arena: the registry calls this once no pinned epoch
@@ -363,9 +361,8 @@ class VerifyEngine:
         device memory is freed when the last in-flight pass drops its
         reference — releasing is accounting plus dropping the owner's
         handle, never a forced deallocation under a live reader."""
-        with self._lock:
-            self.stats["released_arenas"] += 1
-            self.stats["arena_bytes"] -= view.nbytes
+        self._count(released_arenas=1, released_bytes=view.nbytes,
+                    arena_bytes=-view.nbytes)
 
     # ----------------------------------------------------- the fused pass
     def _signature(self, mb: int, bb: int, cap: int, s: int, dtype: str):
@@ -422,7 +419,9 @@ class VerifyEngine:
         else:
             vals, pidx = _screen_pass(view, torch.from_numpy(rows_h), view.xn2,
                                       qc, s)
-        return vals[:m].cpu().numpy(), pidx[:m].cpu().numpy()
+        vals, pidx = vals[:m].cpu().numpy(), pidx[:m].cpu().numpy()
+        self._count(d2h_bytes=vals.nbytes + pidx.nbytes)
+        return vals, pidx
 
     @staticmethod
     def _slate_rows(view: DeviceView, vals: np.ndarray, pidx: np.ndarray,
@@ -457,8 +456,6 @@ class VerifyEngine:
         ((m, kk) d2 ascending f32, (m, kk) rows into ``view.host``, -1
         padded), kk = min(k, |trows|) — the same contract as the host
         screens."""
-        from .execute import _rerank_slate, _screen_topk_exact  # no cycle
-
         trows = np.ascontiguousarray(trows, np.int64)
         m = Q.shape[0]
         if m > _CHUNK_M:  # bounded query tiles (answers unchanged: every
@@ -471,52 +468,25 @@ class VerifyEngine:
                     np.concatenate([p[1] for p in parts]))
         with spans.span("verify.stage"):
             u = trows.size
-            s = min(k + _SLACK, u)
+            s = min(k + SLACK, u)
             Qc = np.asarray(Q, np.float32) - view.mu[None, :]
             qpad, rows_h, mask = self._stage(view, trows, Qc, s)
         v_screen, pidx = self._launch(view, qpad, rows_h, mask, s, m)
         with spans.span("verify.rerank"):
             srows = self._slate_rows(view, v_screen, pidx, rows_h)
-            nv, nrows = _rerank_slate(Q, view.host, srows, k)
+            nv, nrows = rerank_slate(Q, view.host, srows, k)
             if s >= u:
                 return nv, nrows  # the slate IS the candidate set: always exact
-            # certificate: anything screened out of the slate has screen d2
-            # >= the slate's worst, hence true d2 >= worst - 2*bound; a
-            # query whose exact kth distance clears that margin provably
-            # lost nothing. For quantized arenas the screen ranks x_stored =
-            # x + e, |e| <= qerr, which moves a distance by at most
-            # 2(|q| + |x|)|e| — widen the bound by that term (qerr = 0
-            # keeps the pure-f32 certificate).
             qn = np.sqrt(np.einsum("mn,mn->m", Qc, Qc, dtype=np.float64))
-            xnmax = np.sqrt(max(view.xn2max, 0.0))
-            bound = (4.0 * Q.shape[1] * np.finfo(np.float32).eps * qn * xnmax)
-            if view.qerr > 0.0:
-                bound = bound + 2.0 * (qn + xnmax) * view.qerr
-            kk = min(k, u)
-            kth = nv[:, kk - 1] if nv.shape[1] >= kk else np.full(m, np.inf)
-            certified = (srows >= 0).all(axis=1) & (
-                np.where(np.isfinite(kth), kth, 0.0)
-                <= v_screen[:, -1] - 2.0 * bound
-            )
-            bad = np.nonzero(~certified)[0]
+            bad = uncertified(nv, srows, v_screen[:, -1], qn,
+                              np.sqrt(max(view.xn2max, 0.0)), Q.shape[1],
+                              view.qerr)
         if bad.size:
-            with self._lock:
-                self.stats["fallbacks"] += int(bad.size)
+            self._count(fallbacks=int(bad.size))
             with spans.span("verify.fallback"):
-                if exact:
-                    ev, er = _screen_topk_exact(Q[bad], view.host[trows], k)
-                else:  # approximate tiers keep their slack-screen semantics
-                    from .execute import _screen_topk_slack
-
-                    ev, er = _screen_topk_slack(Q[bad], view.host[trows], k)
-                pad = nv.shape[1] - ev.shape[1]
-                if pad > 0:
-                    ev = np.concatenate(
-                        [ev, np.full((bad.size, pad), np.inf, ev.dtype)], axis=1)
-                    er = np.concatenate(
-                        [er, np.full((bad.size, pad), -1, er.dtype)], axis=1)
-                nv[bad] = ev
-                nrows[bad] = np.where(er >= 0, trows[np.maximum(er, 0)], -1)
+                # approximate tiers keep their slack-screen semantics
+                rescreen(nv, nrows, bad, Q, view.host[trows], k, rows=trows,
+                         exact=exact)
         return nv, nrows
 
     # ------------------------------------------------------------ warm-up
@@ -532,7 +502,7 @@ class VerifyEngine:
             from ..kernels import _build
 
             _build.library()
-        s = k + _SLACK
+        s = k + SLACK
         mb = _bucket_batch(min(m, _CHUNK_M))
         new = 0
         with self._lock:

@@ -818,7 +818,7 @@ def test_cuda_mesh_topk_candidates_matches_plain_and_the_f64_answer(nccl_mesh,
     for near ties) and its f64 re-rank is the brute force's top 5."""
     import torch.distributed as dist
 
-    from repro_torch.core.execute import _rerank_slate
+    from repro_torch.core.host_screen import rerank_slate
 
     rng = np.random.default_rng(12)
     X = rng.standard_normal((70_001, 128)).astype(np.float32).cumsum(axis=1)
@@ -835,7 +835,7 @@ def test_cuda_mesh_topk_candidates_matches_plain_and_the_f64_answer(nccl_mesh,
         pd2, prows = nccl_mesh.mesh_topk_candidates(Q - mu, X - mu, 13)
     assert (rows != prows).mean() < 0.01
     np.testing.assert_allclose(d2, pd2, rtol=1e-4, atol=1e-3 * float(np.abs(pd2).max()))
-    nv, nrows = _rerank_slate(Q, X, rows, 5)
+    nv, nrows = rerank_slate(Q, X, rows, 5)
     bf = ((X[None].astype(np.float64) - Q[:, None]) ** 2).sum(-1)
     np.testing.assert_array_equal(nrows, np.argsort(bf, axis=1, kind="stable")[:, :5])
 

@@ -121,12 +121,12 @@ def port_answers() -> dict:
 
     import repro_torch.core as P
     from repro_torch.core import distributed as PD
-    from repro_torch.core.execute import _rerank_slate
+    from repro_torch.core.host_screen import rerank_slate
 
     world = dist.get_world_size() if dist.is_initialized() else 1
     build_mesh = PD.make_mesh((world,), ("data",), "cpu")
     mesh = lambda: tuple(PD.default_batch_mesh("cpu").mesh.shape)  # noqa: E731
-    return _answers(P, PD, _rerank_slate, mesh, build_mesh, {"device": "cpu"})
+    return _answers(P, PD, rerank_slate, mesh, build_mesh, {"device": "cpu"})
 
 
 def reference_answers(devices: int) -> dict:

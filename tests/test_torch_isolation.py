@@ -70,6 +70,40 @@ def test_no_source_imports_jax_or_repro():
     assert found == []
 
 
+def _imported(node):
+    """The module names an import statement reads, relative ones as
+    written (``from . import execute`` gives ``.execute``)."""
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    base = "." * node.level + (node.module or "")
+    return [base] + [f"{base}.{a.name}" if node.module else base + a.name
+                     for a in node.names]
+
+
+def test_verify_engine_imports_nothing_of_the_executor():
+    """Imports point one way: the executor uses the engine, the engine the
+    host screens; the engine imports nothing of the executor, and the
+    executor imports the engine at module top, not inside a function."""
+    engine = ast.parse((PKG / "core" / "verify_engine.py").read_text())
+    found = [name for node in ast.walk(engine)
+             if isinstance(node, (ast.Import, ast.ImportFrom))
+             for name in _imported(node)
+             if name.split(".")[-1] == "execute"]
+    assert found == []
+    executor = ast.parse((PKG / "core" / "execute.py").read_text())
+    top = [name for node in executor.body
+           if isinstance(node, (ast.Import, ast.ImportFrom))
+           for name in _imported(node)]
+    assert ".verify_engine" in top
+    nested = [name for fn in ast.walk(executor)
+              if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+              for node in ast.walk(fn)
+              if isinstance(node, (ast.Import, ast.ImportFrom))
+              for name in _imported(node)
+              if name.split(".")[-1] == "verify_engine"]
+    assert nested == []
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():

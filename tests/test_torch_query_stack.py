@@ -15,6 +15,7 @@ import repro.core as R  # noqa: E402
 import repro_torch.core as P  # noqa: E402
 from repro.core import sortable as rsort  # noqa: E402
 from repro.core import summarization as rsum  # noqa: E402
+from repro_torch.core import host_screen as phs  # noqa: E402
 from repro_torch.core import sortable as psort  # noqa: E402
 from repro_torch.core import summarization as psum  # noqa: E402
 
@@ -95,9 +96,9 @@ def test_sortable_keys_equal_reference_as_uint32(n, w, c):
 def test_screens_and_state_merge_equal_reference(rng):
     Q = _queries(9, seed=3)
     X = _data(700, seed=4)
-    for fn in ("_screen_topk_exact", "_screen_topk_slack"):
-        pv, pi = getattr(pex, fn)(Q, X, 6)
-        rv, ri = getattr(rex, fn)(Q, X, 6)
+    for fn in ("screen_topk_exact", "screen_topk_slack"):
+        pv, pi = getattr(phs, fn)(Q, X, 6)
+        rv, ri = getattr(rex, f"_{fn}")(Q, X, 6)
         np.testing.assert_array_equal(pv, rv)
         np.testing.assert_array_equal(pi, ri)
     vals, ids = pex.empty_topk_state(9, 4)

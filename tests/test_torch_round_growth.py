@@ -25,6 +25,7 @@ pytest.importorskip("jax")
 import repro.core as R  # noqa: E402
 import repro_torch.core as P  # noqa: E402
 from repro.core import verify_engine as rve  # noqa: E402
+from repro_torch.core import host_screen as phs  # noqa: E402
 from repro_torch.core import verify_engine as pve  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -72,16 +73,17 @@ def _ctree(pkg, X):
     return ct, raw
 
 
-def _count_host_passes(monkeypatch, module):
-    """Count the executor's host verification passes (the exact screen)."""
+def _count_host_passes(monkeypatch, module, name):
+    """Count the executor's host verification passes (the exact screen
+    ``name`` of ``module``)."""
     seen = []
-    orig = module._screen_topk_exact
+    orig = getattr(module, name)
 
     def spy(Q, data, k):
         seen.append(len(data))
         return orig(Q, data, k)
 
-    monkeypatch.setattr(module, "_screen_topk_exact", spy)
+    monkeypatch.setattr(module, name, spy)
     return seen
 
 
@@ -167,8 +169,8 @@ def test_small_batches_keep_the_reference_schedule(noise_trees, monkeypatch, m,
         for engine in (pve, rve):
             monkeypatch.setattr(engine, "MIN_DEVICE_BATCH", 1)
             monkeypatch.setattr(engine, "MIN_DEVICE_CANDIDATES", 1)
-    phost = _count_host_passes(monkeypatch, pex)
-    rhost = _count_host_passes(monkeypatch, rex)
+    phost = _count_host_passes(monkeypatch, phs, "screen_topk_exact")
+    rhost = _count_host_passes(monkeypatch, rex, "_screen_topk_exact")
     pex.reset_rounds()
     pd, pi, pst, pcalls = _ask(P, ptree, Q)
     rd, ri, rst, rcalls = _ask(R, rtree, Q)
@@ -192,8 +194,8 @@ def test_host_backends_keep_the_reference_schedule(noise_trees, monkeypatch,
     assert pcalls == 0 and pex.ROUNDS["grown"] == 0
     assert pex.ROUNDS["rounds"] >= len(X) // BLOCK // PER_ROUND
     if backend == "numpy":
-        phost = _count_host_passes(monkeypatch, pex)
-        rhost = _count_host_passes(monkeypatch, rex)
+        phost = _count_host_passes(monkeypatch, phs, "screen_topk_exact")
+        rhost = _count_host_passes(monkeypatch, rex, "_screen_topk_exact")
         _ask(P, ptree, Q, backend=backend)
         rd, ri, rst, _ = _ask(R, rtree, Q, backend=backend)
         np.testing.assert_array_equal(pi, ri)
