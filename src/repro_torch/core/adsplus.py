@@ -277,12 +277,13 @@ class ADSIndex:
                 out[sel] = data
             return out
 
-        def fetch_account(pos: np.ndarray) -> None:
+        def fetch_account(rows: np.ndarray) -> None:
             # the modeled I/O of ``fetch`` without the gather (device path)
             if self.cfg.mode != "full":
-                raw.account_fetch(flat["ids"][pos])
+                raw.account_fetch(rows)  # the RawStore's rows: global ids
                 return
-            leaf_of = np.searchsorted(offsets, pos, side="right") - 1
+            # the flat table's rows are its positions
+            leaf_of = np.searchsorted(offsets, rows, side="right") - 1
             for _, cnt in zip(*np.unique(leaf_of, return_counts=True)):
                 self.disk.read_rand(int(cnt) * L * 4)
 
@@ -301,7 +302,7 @@ class ADSIndex:
             table_ids = lambda r: flat["ids"][r]
         elif raw is not None:
             device_view = raw.device_view
-            table_rows = lambda p: flat["ids"][p]
+            table_rows = flat["ids"]
             table_ids = lambda r: r  # raw rows ARE global ids
         else:
             device_view = table_rows = table_ids = None

@@ -49,6 +49,7 @@ from .external_sort import SortReport, external_sort_order
 from .io_model import DiskModel
 from .lower_bounds import mindist_region2
 from .plan import (
+    BlockRanges,
     BlockSource,
     DenseSource,
     QueryPlan,
@@ -424,7 +425,7 @@ class SortedRun:
         index_read = None
         if disk is not None:
             per = self.cfg.key_words * 4 + self.cfg.n_segments
-            index_read = lambda p: disk.read_rand(p.size * per)
+            index_read = lambda count: disk.read_rand(count * per)
         # device arena accessors: materialized runs own their arena (table
         # row == entry position); non-materialized runs verify against the
         # RawStore's arena (table row == global id)
@@ -432,12 +433,12 @@ class SortedRun:
             device_view = self.device_view
             table_rows = None  # identity
             table_ids = lambda r: self.ids[r]
-            fetch_account = lambda p: self._account_entries(p, disk, sequential)
+            fetch_account = lambda r: self._account_entries(r, disk, sequential)
         elif raw is not None:
             device_view = raw.device_view
-            table_rows = lambda p: self.ids[p]
+            table_rows = self.ids
             table_ids = lambda r: r  # raw rows ARE global ids
-            fetch_account = lambda p: raw.account_fetch(self.ids[p])
+            fetch_account = raw.account_fetch
         else:
             device_view = table_rows = table_ids = fetch_account = None
         prefetch_ranges = None
@@ -476,7 +477,8 @@ class SortedRun:
         disk: Optional[DiskModel] = None,
     ) -> BlockSource:
         """Exact-tier candidate generation: per-(query, block) lower bounds
-        from the zone maps; the executor's adaptive traversal does the rest."""
+        from the zone maps, over the run's blocks as ranges of its entries;
+        the executor's adaptive traversal does the rest."""
         with spans.span("plan.exact"):
             Q = np.asarray(Q, np.float32)
             qp = np.asarray(paa(Q, self.cfg))  # (m, w)
@@ -484,16 +486,11 @@ class SortedRun:
                 qp[:, None, :], self.bmin.astype(np.int64),
                 self.bmax.astype(np.int64), self.cfg,
             )  # (m, nb)
-            bs = self.block_size
-            blocks = [
-                np.arange(b * bs, min(self.n, (b + 1) * bs))
-                for b in range(self.n_blocks)
-            ]
             return BlockSource(
                 ops=self._ops(raw, disk, sequential=self.materialized,
                               screen=True),
                 lb=blb,
-                blocks=blocks,
+                blocks=BlockRanges(self.n, self.block_size),
             )
 
     def _query_keys_batch(self, Q: np.ndarray, backend: str) -> np.ndarray:

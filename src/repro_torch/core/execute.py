@@ -47,12 +47,14 @@ from . import host_screen, verify_engine
 from .io_model import coalesce_ranges
 from .lower_bounds import mindist_paa_sax2
 from .plan import (
+    BlockRanges,
     BlockSource,
     DenseSource,
     GroupSource,
     QueryPlan,
     QueryStats,
     RangeSource,
+    block_positions,
     window_mask,
 )
 from .summarization import paa
@@ -60,8 +62,9 @@ from .summarization import paa
 BACKENDS = ("device", "numpy", "kernel")
 
 # rounds of the exact traversal since the last reset (the seed pass
-# included), and those of them larger than ``blocks_per_round``
-ROUNDS = {"rounds": 0, "grown": 0}
+# included), those of them larger than ``blocks_per_round``, and those
+# whose arena rows were slices of a sorted run's (no positions built)
+ROUNDS = {"rounds": 0, "grown": 0, "ranged": 0}
 
 
 def reset_rounds() -> None:
@@ -166,7 +169,7 @@ def _device_screen(
 
 def _table_rows(ops, pos: np.ndarray) -> np.ndarray:
     """Entry positions -> rows of the source's arena."""
-    return ops.table_rows(pos) if ops.table_rows is not None else pos
+    return ops.table_rows[pos] if ops.table_rows is not None else pos
 
 
 def _table_gids(ops, nrows: np.ndarray) -> np.ndarray:
@@ -177,11 +180,11 @@ def _table_gids(ops, nrows: np.ndarray) -> np.ndarray:
 
 
 def _device_topk(
-    Q: np.ndarray, ops, pos: np.ndarray, k: int, *, exact: bool
+    Q: np.ndarray, ops, trows: np.ndarray, k: int, *, exact: bool
 ) -> tuple[np.ndarray, np.ndarray]:
-    """:func:`_device_screen` over the entries at ``pos``. Returns ((m, kk)
-    exact d2, (m, kk) GLOBAL ids, -1 padded)."""
-    nv, nrows = _device_screen(Q, ops, _table_rows(ops, pos), k, exact=exact)
+    """:func:`_device_screen` over the arena rows ``trows``. Returns ((m,
+    kk) exact d2, (m, kk) GLOBAL ids, -1 padded)."""
+    nv, nrows = _device_screen(Q, ops, trows, k, exact=exact)
     return nv, _table_gids(ops, nrows)
 
 
@@ -292,7 +295,8 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
     ops = src.ops
     m = Q.shape[0]
     lb = np.asarray(src.lb, np.float32).reshape(m, -1)
-    blocks = list(src.blocks)
+    ranged = isinstance(src.blocks, BlockRanges)
+    blocks = src.blocks if ranged else list(src.blocks)  # refine appends
     done = np.zeros(lb.shape[1], bool)
     replaced = np.zeros(lb.shape[1], bool)
     # The entry-level MINDIST screen only pays off when per-query radii are
@@ -324,6 +328,12 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
     # (which follow the round structure and its modeled I/O), and after a
     # round verified on the device (a host round fetches its rows).
     may_grow = not small and src.refine is None
+    # A sorted run's round that no entry filter thins (window_mask keeps
+    # all: no window or no timestamps; no entry screen) and that goes to
+    # the device needs no positions: its arena rows are slices of the
+    # run's ``table_rows`` (its positions on a materialized run), in the
+    # same best-first order as the positions would give them.
+    sliced = ranged and qp is None and (plan.window is None or ops.ts is None)
 
     def try_refine(sel: np.ndarray) -> bool:
         nonlocal lb, done, replaced
@@ -351,11 +361,22 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
         """The host half of a round: the positions of the blocks ``sel``
         past the window and the entry-level screen, their modeled I/O on
         the device route, and (for that route) their arena rows. Returns
-        (positions, arena rows or None), or None when nothing is left."""
+        (positions or None, arena rows or None), or None when nothing is
+        left; the positions are None on the sliced route."""
         done[sel] = True
-        pos = np.concatenate([blocks[b] for b in sel])
+        if sliced:
+            n_rows = blocks.count(sel)
+            if _device_ready(ops, n_rows, backend, m):
+                if ops.index_read is not None:
+                    ops.index_read(n_rows)
+                stats.entries_verified += n_rows
+                trows = blocks.take(sel, ops.table_rows)
+                ops.fetch_account(trows)
+                ROUNDS["ranged"] += 1
+                return None, trows
+        pos = block_positions(blocks, sel)
         if ops.index_read is not None:
-            ops.index_read(pos)
+            ops.index_read(pos.size if ranged else pos)
         win = window_mask(ops.ts, plan.window, pos)
         if win is not None:
             stats.entries_pruned += int((~win).sum())
@@ -372,12 +393,13 @@ def _exec_blocks(src: BlockSource, plan, Q, k, vals, ids, stats, backend,
         if pos.size == 0:
             return None
         stats.entries_verified += int(pos.size)
-        if not _device_ready(ops, pos.size, backend, Q.shape[0]):
+        if not _device_ready(ops, pos.size, backend, m):
             return pos, None
-        ops.fetch_account(pos)
-        return pos, _table_rows(ops, pos)
+        trows = _table_rows(ops, pos)
+        ops.fetch_account(trows)
+        return pos, trows
 
-    def verify(pos: np.ndarray, trows) -> None:
+    def verify(pos, trows) -> None:
         nonlocal vals, ids
         if trows is not None:
             # ONE fused arena pass (gather + screen + in-kernel select);
@@ -528,7 +550,7 @@ def _exec_range(src: RangeSource, plan, Q, k, vals, ids, stats, backend):
                 dsel[j01[g, 0]:j01[g, 1]] = True
             dacct = dsel & ~hsel  # rows the host fetch already accounted
             if dacct.any():
-                ops.fetch_account(upos[dacct])
+                ops.fetch_account(_table_rows(ops, upos[dacct]))
     for g in range(n_groups):
         qidx = qidx_g[g]
         j0, j1 = int(j01[g, 0]), int(j01[g, 1])
@@ -537,7 +559,8 @@ def _exec_range(src: RangeSource, plan, Q, k, vals, ids, stats, backend):
         if dev[g]:
             # fused arena pass for this distinct span's query group; the
             # approx tier keeps its slack-screen fallback semantics
-            nv, gi = _device_topk(Q[qidx], ops, upos[j0:j1], k, exact=False)
+            nv, gi = _device_topk(Q[qidx], ops, _table_rows(ops, upos[j0:j1]),
+                                  k, exact=False)
             mv, mi = merge_topk_state(vals[qidx], ids[qidx], nv, gi)
             vals[qidx], ids[qidx] = mv, mi
             continue
@@ -584,8 +607,9 @@ def _exec_group(src: GroupSource, plan, Q, k, vals, ids, stats, backend):
             continue
         stats.entries_verified += int(pos.size)
         if _device_ready(ops, pos.size, backend, qidx.size):
-            ops.fetch_account(pos)
-            nv, gi = _device_topk(Q[qidx], ops, pos, k, exact=False)
+            trows = _table_rows(ops, pos)
+            ops.fetch_account(trows)
+            nv, gi = _device_topk(Q[qidx], ops, trows, k, exact=False)
         else:  # small leaf groups take the host tail (same answers)
             data = ops.fetch(pos)
             if backend == "kernel":
@@ -624,11 +648,7 @@ def _execute_mesh(plan, Q, k, vals, ids, stats, mesh):
         if isinstance(src, DenseSource):
             pos = np.arange(src.n)
         elif isinstance(src, BlockSource):
-            pos = (
-                np.concatenate(src.blocks)
-                if src.blocks
-                else np.zeros((0,), np.int64)
-            )
+            pos = block_positions(src.blocks, np.arange(len(src.blocks)))
             stats.blocks_visited += len(src.blocks) * m
         else:
             raise ValueError(

@@ -19,6 +19,8 @@ window predicate and run-level skip semantics as data:
 * :class:`BlockSource`  — block-structured exact traversal: per-(query,
   block) lower bounds from zone maps, adaptive best-first verification,
   optional :attr:`BlockSource.refine` for ADS+'s query-time leaf splits.
+  A sorted run's blocks are :class:`BlockRanges` (contiguous ranges of its
+  entries); ADS+'s leaves stay position lists.
 * :class:`RangeSource`  — the approximate tier on a sorted run: per-query
   contiguous entry spans around the sortable-key seek position, coalesced
   into deduplicated sequential reads.
@@ -41,13 +43,14 @@ screen-without-recompute fast path. The device accessors
 the source's table to the default device verification backend
 (:mod:`repro_torch.core.verify_engine`) without the executor ever touching a
 device tensor:
-the arena handle, the position->table-row map, the row->global-id map,
-and modeled-I/O accounting for passes that never materialize on the host.
+the arena handle, the position->table-row map (an array, so a sorted
+run's rows are slices of it), the row->global-id map, and modeled-I/O
+accounting, by arena row, for passes that never materialize on the host.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -79,8 +82,9 @@ class SourceOps:
     ts: Optional[np.ndarray] = None  # (N,) timestamps (window filtering)
     # positions -> (U, series_len) f32 raw series; models its own I/O
     fetch: Optional[Callable[[np.ndarray], np.ndarray]] = None
-    # account reading the index entries (keys+sax) at these positions
-    index_read: Optional[Callable[[np.ndarray], None]] = None
+    # account reading the index entries (keys+sax) of a round: their
+    # positions, or their count where the source's blocks are BlockRanges
+    index_read: Optional[Callable] = None
     # entry-level lower-bound screen inputs (exact traversal)
     sax: Optional[np.ndarray] = None  # (N, w) SAX symbols
     scfg: Optional[SummarizationConfig] = None
@@ -92,14 +96,15 @@ class SourceOps:
     # lazy handle to the source's device arena (a verify_engine.DeviceView,
     # cached by the data owner so the table uploads once per lifetime)
     device_view: Optional[Callable[[], object]] = None
-    # entry positions -> row indices into the arena's table (identity for
-    # materialized runs; the raw-store id map for non-materialized ones)
-    table_rows: Optional[Callable[[np.ndarray], np.ndarray]] = None
+    # (N,) arena table row of each entry position (None: row == position,
+    # a materialized run; the raw-store ids of a non-materialized one)
+    table_rows: Optional[np.ndarray] = None
     # arena table rows -> global series ids (the inverse answer mapping)
     table_ids: Optional[Callable[[np.ndarray], np.ndarray]] = None
-    # modeled-I/O accounting of fetching these positions WITHOUT the host
-    # gather — the device path reads the arena, not the store, but pays
-    # the same modeled I/O as the host engine so stats stay comparable
+    # modeled-I/O accounting of fetching the entries at these arena rows
+    # WITHOUT the host gather — the device path reads the arena, not the
+    # store, but pays the same modeled I/O as the host engine so stats
+    # stay comparable
     fetch_account: Optional[Callable[[np.ndarray], None]] = None
     # async readahead of coalesced [lo, hi) row spans (file-backed runs
     # hand them to the readahead pool); advisory — answers never depend on it
@@ -120,13 +125,66 @@ class DenseSource:
     n: int
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockRanges:
+    """The blocks of a sorted run as ranges of its entries: block ``b`` is
+    ``[b * size, min(n, (b + 1) * size))``. :meth:`take` gives the entries
+    of selected blocks without building a position list."""
+
+    n: int
+    size: int
+
+    def __len__(self) -> int:
+        return -(-self.n // self.size)
+
+    def count(self, sel: np.ndarray) -> int:
+        """Entries in the blocks ``sel``."""
+        lo = np.asarray(sel, np.int64) * self.size
+        return int((np.minimum(lo + self.size, self.n) - lo).sum())
+
+    def take(self, sel: np.ndarray, a: Optional[np.ndarray] = None) -> np.ndarray:
+        """``concat(a[block] for block in sel)`` in ``sel``'s order, or the
+        blocks' positions where ``a`` is None. The full blocks are rows of
+        ``a`` seen as (blocks, size); only the short last block, if ``sel``
+        holds it, is sliced on its own."""
+        sel = np.asarray(sel, np.int64)
+        full = self.n // self.size
+        lo = full * self.size
+        if a is None:
+            def rows(s):
+                return (s[:, None] * self.size + np.arange(self.size)).ravel()
+            tail = np.arange(lo, self.n)
+        else:
+            def rows(s):
+                return a[:lo].reshape(full, self.size)[s].ravel()
+            tail = a[lo:self.n]
+        j = np.flatnonzero(sel == full)
+        if j.size == 0:
+            return rows(sel)
+        j = int(j[0])
+        return np.concatenate([rows(sel[:j]), tail, rows(sel[j + 1:])])
+
+
+def block_positions(blocks, sel: np.ndarray) -> np.ndarray:
+    """The entry positions of the blocks ``sel``, in ``sel``'s order, of a
+    :class:`BlockSource`'s position lists or :class:`BlockRanges`."""
+    if isinstance(blocks, BlockRanges):
+        return blocks.take(sel)
+    if len(sel) == 0:
+        return np.zeros(0, np.int64)
+    return np.concatenate([blocks[b] for b in sel])
+
+
 @dataclasses.dataclass
 class BlockSource:
     """Exact adaptive traversal over lower-bounded entry blocks."""
 
     ops: SourceOps
     lb: np.ndarray  # (m, nb) per-(query, block) lower bounds
-    blocks: List[np.ndarray]  # per-block entry positions
+    # per-block entry positions: a sorted run's BlockRanges, or a list of
+    # position arrays (ADS+'s leaves, which are not contiguous and to
+    # which ``refine`` appends)
+    blocks: Union[BlockRanges, List[np.ndarray]]
     # adaptive refinement (ADS+): called when block b is selected for
     # verification; returns replacement [(lb_col (m,), positions), ...] or
     # None to verify the block as-is. Replaced blocks are never verified.

@@ -216,7 +216,6 @@ def _range_fixture(pkg, n=8192, m=64, seed=17):
     view = (ve.get_engine() if pkg is R else ve.get_engine("cpu")).build_view(X)
     ops = pkg.SourceOps(ids=np.arange(n, dtype=np.int64), fetch=fetch,
                         norms2=lambda pos: xsq[pos], device_view=lambda: view,
-                        table_rows=lambda pos: pos,
                         table_ids=lambda rows: rows.astype(np.int64),
                         fetch_account=fetch_account)
     return Q, pkg.RangeSource(ops=ops, spans=spans, logical_blocks=1), calls

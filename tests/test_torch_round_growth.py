@@ -8,9 +8,13 @@ engine. The answers and the ``QueryStats`` must not move: on trees large
 enough for rounds to grow, the port answers bit for bit as the reference,
 which keeps rounds of ``blocks_per_round``, in far fewer engine passes; on
 the paths where rounds may not grow, the engine's passes and the stats are
-the reference's. Everything runs on the CPU (the port with
-``device="cpu"``, whose engine runs the screens' plain versions).
+the reference's. A sorted run's blocks are ranges of its entries: a
+round that no entry filter thins and that goes to the engine takes its
+arena rows as slices of the run's ids, the rows its positions gave, in the
+same order and with the same modeled I/O. Everything runs on the CPU (the
+port with ``device="cpu"``, whose engine runs the screens' plain versions).
 """
+import dataclasses
 import importlib
 import math
 import sys
@@ -63,12 +67,12 @@ def _series(n, seed, walk=False):
     return x.astype(np.float32)
 
 
-def _ctree(pkg, X):
+def _ctree(pkg, X, materialized=False):
     raw = pkg.RawStore(D, **_kw(pkg))
     ids = raw.append(X)
     scfg = pkg.SummarizationConfig(series_len=D, n_segments=8, card_bits=6)
     ct = pkg.CTree(pkg.CTreeConfig(summarization=scfg, block_size=BLOCK,
-                                   materialized=False, **_kw(pkg)))
+                                   materialized=materialized, **_kw(pkg)))
     ct.bulk_build(X, ids)
     return ct, raw
 
@@ -263,3 +267,224 @@ def test_stream_window_batch_with_a_grown_run_answers_as_the_reference():
                        np.full(m, a), np.full(m, z))
     assert r["bad_ids"] == 0 and r["dist_gap"] <= 4e-7 and r["id_gap"] <= 4e-7, r
     np.testing.assert_array_equal(ids, ref_i)
+
+
+
+# ---------------------------------------------------------------------------
+# a sorted run's blocks as ranges: a round's arena rows are slices
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def ranged_trees():
+    """Noise trees of 512 blocks (no block prunes) over the same series,
+    non-materialized and materialized, in both packages; the last block is
+    short, so a slice of it runs to the run's end."""
+    X = _series(512 * BLOCK - 17, seed=2)
+    return X, {mat: (_ctree(P, X, mat), _ctree(R, X, mat))
+               for mat in (False, True)}
+
+
+def _disks(tree):
+    ct, raw = tree
+    return (ct.disk, raw.disk)
+
+
+def _every_round_on_the_engine(monkeypatch):
+    """Lower the engine's candidate floor in both packages, so that the
+    seed round, a few blocks of 64 entries, reaches the engine too."""
+    for engine in (pve, rve):
+        monkeypatch.setattr(engine, "MIN_DEVICE_CANDIDATES", 1)
+
+
+def _listed(monkeypatch):
+    """Plan the port's sorted runs with one position list a block, as
+    before their blocks became ranges (and ``index_read`` took the
+    positions)."""
+    orig = P.SortedRun.plan_exact
+
+    def plan_exact(self, Q, **kw):
+        src = orig(self, Q, **kw)
+        read = src.ops.index_read
+        ops = dataclasses.replace(
+            src.ops, index_read=None if read is None else lambda p: read(p.size))
+        return P.BlockSource(ops=ops, lb=src.lb,
+                             blocks=[src.blocks.take(np.array([b]))
+                                     for b in range(len(src.blocks))])
+
+    monkeypatch.setattr(P.SortedRun, "plan_exact", plan_exact)
+
+
+def _traced_batch(tree, Q, keep_log, **kw):
+    """One port batch with fresh disks: answers, stats, each engine pass's
+    arena rows, the engine's h2d bytes, the rounds and the disks' counters
+    and logs."""
+    for disk in _disks(tree):
+        disk.reset()
+        disk.keep_log = keep_log
+    passes = []
+    orig = pex._device_screen
+
+    def spy(Q, ops, trows, k, *, exact):
+        passes.append(np.array(trows, copy=True))
+        return orig(Q, ops, trows, k, exact=exact)
+
+    ct, raw = tree
+    ct.plan(Q, tier="exact", raw=raw).sources[0].ops.device_view()  # uploaded
+    eng = _engine(P)
+    h2d0 = eng.stats["h2d_bytes"]
+    pex.reset_rounds()
+    pex._device_screen = spy
+    try:
+        if kw:
+            (d2, ids), stats = pex.execute(ct.plan(Q, tier="exact", raw=raw), Q,
+                                           K, **kw)
+        else:
+            d2, ids, stats, _ = _ask(P, tree, Q)
+    finally:
+        pex._device_screen = orig
+    disks = [(vars(d.stats), d.heatmap(), d.heatmap(7)) for d in _disks(tree)]
+    return (d2, ids, vars(stats), passes, eng.stats["h2d_bytes"] - h2d0,
+            dict(pex.ROUNDS), disks)
+
+
+@pytest.mark.parametrize("keep_log", [False, True])
+@pytest.mark.parametrize("m", [9, 64])
+@pytest.mark.parametrize("materialized", [False, True])
+def test_ranged_rounds_take_the_rows_positions_gave(ranged_trees, monkeypatch,
+                                                    materialized, m, keep_log):
+    """Rounds that grow, every one of them ranged: each engine pass gets the
+    rows ``ids[concat(positions)]`` gave (a materialized run: the
+    positions), in order, with the same h2d bytes, stats and modeled I/O
+    (counters and heat maps, with and without the log) as the same
+    schedule over position lists; the answers and ``QueryStats`` are the
+    reference's bit for bit."""
+    X, trees = ranged_trees
+    ptree, rtree = trees[materialized]
+    Q = _series(m, seed=31 + m)
+    _every_round_on_the_engine(monkeypatch)
+    got = _traced_batch(ptree, Q, keep_log)
+    rounds = got[5]
+    assert rounds["ranged"] == rounds["rounds"] > 0 and rounds["grown"] > 0
+    _listed(monkeypatch)
+    want = _traced_batch(ptree, Q, keep_log)
+    assert want[5] == dict(rounds, ranged=0)
+    assert len(got[3]) == len(want[3]) == rounds["rounds"]
+    for a, b in zip(got[3], want[3]):
+        np.testing.assert_array_equal(a, b)
+    assert got[4] == want[4] > 0  # h2d bytes
+    assert got[6] == want[6]  # the disks' counters and heat maps
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2] == want[2]
+    rd, ri, rst, _ = _ask(R, rtree, Q)
+    np.testing.assert_array_equal(got[1], ri)
+    np.testing.assert_array_equal(got[0], rd)
+    assert got[2] == vars(rst)
+    assert got[2]["entries_verified"] == len(X)
+
+
+@pytest.mark.parametrize("keep_log", [False, True])
+@pytest.mark.parametrize("m", [9, 64])
+@pytest.mark.parametrize("materialized", [False, True])
+def test_ranged_rounds_account_the_reference_io(ranged_trees, monkeypatch,
+                                                materialized, m, keep_log):
+    """On the reference's own schedule (one round past the seed, which no
+    growth changes), ranged rounds answer and account as the reference:
+    the same answers, ``QueryStats``, and disk counters and heat maps with
+    the log on and off."""
+    X, trees = ranged_trees
+    ptree, rtree = trees[materialized]
+    Q = _series(m, seed=47 + m)
+    _every_round_on_the_engine(monkeypatch)
+    per_round = len(X) // BLOCK + 1  # every block in one round
+    got = _traced_batch(ptree, Q, keep_log, blocks_per_round=per_round)
+    assert got[5] == {"rounds": 2, "grown": 0, "ranged": 2}
+    for disk in _disks(rtree):
+        disk.reset()
+        disk.keep_log = keep_log
+    ct, raw = rtree
+    (rd, ri), rst = rex.execute(ct.plan(Q, tier="exact", raw=raw), Q, K,
+                                blocks_per_round=per_round)
+    np.testing.assert_array_equal(got[1], ri)
+    np.testing.assert_array_equal(got[0], rd)
+    assert got[2] == vars(rst)
+    assert got[6] == [(vars(d.stats), d.heatmap(), d.heatmap(7))
+                      for d in _disks(rtree)]
+
+
+def _stream_window(pkg):
+    """A BTP stream's windowed batch (its runs carry timestamps)."""
+    batch, batches, window = 2_000, 12, (3, 10)
+    X = _series(batch * batches, seed=8)
+    scfg = pkg.SummarizationConfig(series_len=D, n_segments=8, card_bits=6)
+    idx = pkg.StreamingIndex(pkg.StreamConfig(
+        scheme="BTP", summarization=scfg, buffer_entries=1024,
+        growth_factor=4, block_size=BLOCK, ingest="sync", screen_dtype="f32",
+        **_kw(pkg)))
+    try:
+        for b in range(batches):
+            idx.ingest(X[b * batch:(b + 1) * batch], np.full(batch, b, np.int64))
+        d2, ids, stats = idx.window_knn_batch(_series(16, seed=9), *window, k=K)
+    finally:
+        idx.close()
+    return d2, ids, vars(stats)
+
+
+def _adsplus(pkg):
+    """ADS+ ``adaptive``: position lists, split by ``refine``."""
+    rng = np.random.default_rng(4)
+    X = rng.standard_normal((24_000, D)).astype(np.float32).cumsum(axis=1)
+    Q = rng.standard_normal((16, D)).astype(np.float32).cumsum(axis=1)
+    scfg = pkg.SummarizationConfig(series_len=D, n_segments=8, card_bits=6)
+    raw = pkg.RawStore(D, **_kw(pkg))
+    ids = raw.append(X)
+    ads = pkg.ADSIndex(pkg.ADSConfig(summarization=scfg, leaf_size=256,
+                                     mode="adaptive", query_leaf_size=64,
+                                     **_kw(pkg)))
+    ads.insert_batch(X, ids)
+    d2, gids, stats = ads.knn_batch(Q, k=K, raw=raw)
+    assert ads.n_splits > 0
+    return d2, gids, vars(stats)
+
+
+@pytest.mark.parametrize("route", ["window", "m8", "m1", "numpy", "kernel",
+                                   "adsplus"])
+def test_other_routes_take_no_slices(ranged_trees, monkeypatch, route):
+    """Where an entry filter applies (a window over runs with timestamps;
+    the MINDIST screen of batches of 8 or fewer, here with the engine's
+    floors lowered so their rounds reach the device), where the rows go
+    through the host (``numpy``, ``kernel``), and on ADS+'s position lists
+    split by ``refine``, no round is ranged, and the answers are the
+    reference's."""
+    if route == "window":
+        pex.reset_rounds()
+        got = _stream_window(P)
+        assert pex.ROUNDS["rounds"] > 0
+        want = _stream_window(R)
+    elif route == "adsplus":
+        pex.reset_rounds()
+        got = _adsplus(P)
+        assert pex.ROUNDS["rounds"] > 2
+        want = _adsplus(R)
+    else:
+        _, trees = ranged_trees
+        ptree, rtree = trees[False]
+        kw = {}
+        if route in ("numpy", "kernel"):
+            Q = _series(16, seed=13)
+            kw = {"backend": route}
+        else:
+            Q = _series(int(route[1:]), seed=13)
+            for engine in (pve, rve):
+                monkeypatch.setattr(engine, "MIN_DEVICE_BATCH", 1)
+                monkeypatch.setattr(engine, "MIN_DEVICE_CANDIDATES", 1)
+        pex.reset_rounds()
+        pd, pi, pst, pcalls = _ask(P, ptree, Q, **kw)
+        assert pex.ROUNDS["rounds"] > 0
+        assert pcalls == 0 if kw else pcalls > 0
+        got = (pd, pi, vars(pst))
+        rd, ri, rst, _ = _ask(R, rtree, Q, **({} if route == "kernel" else kw))
+        want = (rd, ri, vars(rst))
+    assert pex.ROUNDS["ranged"] == 0
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[2] == want[2]
