@@ -18,16 +18,34 @@ present. Queries are pure snapshot readers.
 
 Worker failures are latched and re-raised on the submitting thread at the
 next ``insert``/``drain``/``close`` so they cannot vanish silently.
+
+Tracing: ``insert`` is the span ``ingest.submit`` (its calls are the
+submissions) and a wait on backpressure inside it is ``ingest.backpressure``
+(opened only when the backlog is over ``max_lag_entries``, so its calls are
+the waits); neither encloses device work. The worker's flushes and merges
+are ``clsm.flush`` / ``clsm.merge``: their time adds to ``spans.totals()``,
+but torch's profiler keeps the ranges of the thread it was started on only
+(unless its session was started with ``profile_all_threads``), so they do
+not reach a trace. :attr:`IngestPipeline.counts` counts the same events
+whether or not the profiler records (``COUNTS``).
 """
 from __future__ import annotations
 
 import threading
+import time
 from typing import Optional
 
 import numpy as np
 
+from .. import spans
 from .clsm import CLSM
 from .run_registry import BufferChunk
+
+# IngestPipeline.counts: submissions; backpressure waits and their ns; the
+# backlog (buffered plus flushing entries) right after each append, summed
+# and its largest; flushes and merges the worker finished
+COUNTS = ("submits", "waits", "wait_ns", "lag_sum", "lag_max", "flushes",
+          "merges")
 
 
 class IngestPipeline:
@@ -58,6 +76,7 @@ class IngestPipeline:
         self._done = False  # worker has exited (nothing will flush anymore)
         self._flush_all = False
         self._error: Optional[BaseException] = None
+        self.counts = dict.fromkeys(COUNTS, 0)
         self._worker = threading.Thread(target=self._run, name="coconut-ingest",
                                         daemon=True)
         self._worker.start()
@@ -78,34 +97,48 @@ class IngestPipeline:
         the worker. Returns as soon as the batch is query-visible. Raises
         once the pipeline is closed or its worker has died — data must not
         silently pile into a buffer nothing will ever flush."""
-        self._raise_pending()
-        if self._stop:
-            raise RuntimeError("ingest pipeline is closed (no worker will "
-                               "flush this data)")
-        chunk = BufferChunk(
-            series=np.asarray(series, np.float32),
-            ids=np.asarray(ids, np.int64),
-            ts=np.asarray(ts, np.int64),
-        )
-        self.lsm.append_chunk(chunk)
+        with spans.span("ingest.submit"):
+            self._raise_pending()
+            if self._stop:
+                raise RuntimeError("ingest pipeline is closed (no worker will "
+                                   "flush this data)")
+            chunk = BufferChunk(
+                series=np.asarray(series, np.float32),
+                ids=np.asarray(ids, np.int64),
+                ts=np.asarray(ts, np.int64),
+            )
+            self.lsm.append_chunk(chunk)
+            with self._cond:
+                lag = self._backlog()
+                self.counts["submits"] += 1
+                self.counts["lag_sum"] += lag
+                self.counts["lag_max"] = max(self.counts["lag_max"], lag)
+                self._cond.notify_all()
+                if self.max_lag_entries is not None and lag > self.max_lag_entries:
+                    # a close() mid-wait still drains: wake on _done (worker
+                    # exited), not on _stop alone, so a closing worker gets to
+                    # shrink the backlog before we judge it stranded
+                    t0 = time.perf_counter_ns()
+                    with spans.span("ingest.backpressure"):
+                        self._cond.wait_for(
+                            lambda: self._done or self._error is not None
+                            or self._backlog() <= self.max_lag_entries)
+                    self.counts["waits"] += 1
+                    self.counts["wait_ns"] += time.perf_counter_ns() - t0
+                    if (self._error is None and self._done
+                            and self._backlog() > self.max_lag_entries):
+                        # the worker exited while this insert waited on
+                        # backpressure: its data sits in a buffer nothing will
+                        # ever flush — fail loudly instead of returning success
+                        raise RuntimeError(
+                            "ingest pipeline is closed (no worker will flush "
+                            "this data)")
+            self._raise_pending()
+
+    def reset_counts(self) -> None:
         with self._cond:
-            self._cond.notify_all()
-            if self.max_lag_entries is not None:
-                # a close() mid-wait still drains: wake on _done (worker
-                # exited), not on _stop alone, so a closing worker gets to
-                # shrink the backlog before we judge it stranded
-                self._cond.wait_for(
-                    lambda: self._done or self._error is not None
-                    or self._backlog() <= self.max_lag_entries)
-                if (self._error is None and self._done
-                        and self._backlog() > self.max_lag_entries):
-                    # the worker exited while this insert waited on
-                    # backpressure: its data sits in a buffer nothing will
-                    # ever flush — fail loudly instead of returning success
-                    raise RuntimeError(
-                        "ingest pipeline is closed (no worker will flush "
-                        "this data)")
-        self._raise_pending()
+            for name in COUNTS:
+                self.counts[name] = 0
 
     def _backlog(self) -> int:
         snap = self.lsm.registry.current()
@@ -126,6 +159,7 @@ class IngestPipeline:
                     self._cond.notify_all()
                     return
                 self._busy = True
+            flushes, merges = self.lsm.n_flushes, self.lsm.n_merges
             try:
                 # one flush (+ its cascading merges) per loop turn so stop/
                 # drain requests are observed between publishes
@@ -139,6 +173,8 @@ class IngestPipeline:
                     self._cond.notify_all()
                 return
             with self._cond:
+                self.counts["flushes"] += self.lsm.n_flushes - flushes
+                self.counts["merges"] += self.lsm.n_merges - merges
                 self._busy = False
                 self._cond.notify_all()  # backpressure + drain waiters
 
